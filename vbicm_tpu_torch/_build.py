@@ -1,0 +1,86 @@
+"""Build and load the package's CUDA kernels.
+
+The sources under ``csrc/`` have a plain C interface. At first use they are
+compiled with ``nvcc`` for ``sm_90a`` into one shared library under
+``build/vbicm_tpu_torch/`` at the root of the checkout, and loaded with
+``ctypes``. The library's file name carries a hash of the sources and flags,
+so an edited source builds anew and a stale library is never loaded. Nothing
+is fetched; a failed build raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+
+_PKG_DIR = os.path.dirname(os.path.abspath(__file__))
+BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "vbicm_tpu_torch")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_PTR = ctypes.c_void_p
+_INT = ctypes.c_int
+_SIGNATURES = {
+    # (V, Vt, g, coeffs, b, x, a, B, n, tile, stream) -> cudaError_t
+    "vbicm_spectral_apply_f32": [_PTR] * 7 + [_INT] * 3 + [_PTR],
+    "vbicm_spectral_apply_f64": [_PTR] * 7 + [_INT] * 3 + [_PTR],
+}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    candidate = os.path.join(cuda_home, "bin", "nvcc")
+    if os.path.exists(candidate):
+        return candidate
+    raise RuntimeError("nvcc not found on PATH or under CUDA_HOME; cannot build the CUDA kernels")
+
+
+@functools.lru_cache(maxsize=None)
+def load_library():
+    """Compile (if needed) and load the kernels' shared library.
+
+    Returns ``(lib, build_seconds, compiler_log)``; ``build_seconds`` is 0.0
+    when a library built from the same sources was already on disk.
+    """
+    sources = sorted(glob.glob(os.path.join(_PKG_DIR, "csrc", "*.cu")))
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources:
+        with open(path, "rb") as f:
+            digest.update(f.read())
+    lib_path = os.path.join(BUILD_DIR, f"libvbicm_kernels_{digest.hexdigest()[:16]}.so")
+    log_path = lib_path[:-3] + ".log"
+
+    seconds, log = 0.0, ""
+    if not os.path.exists(lib_path):
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{lib_path}.{os.getpid()}.tmp"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources]
+        tic = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        seconds = time.perf_counter() - tic
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
+        with open(log_path, "w") as f:
+            f.write(log)
+        os.replace(tmp, lib_path)  # atomic: a concurrent build never sees half a file
+    elif os.path.exists(log_path):
+        with open(log_path) as f:
+            log = f.read()
+
+    lib = ctypes.CDLL(lib_path)
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib, seconds, log

@@ -1,0 +1,197 @@
+"""FemModel: the preprocessed FEM problem as tensors on one device
+(counterpart of ``vbicm_tpu/model.py``).
+
+Everything theta-independent is built once on the host in float64 with
+NumPy (B-matrices, ``dvol = thk * detJ * w``, the affine element stiffness
+parts ``ke_lam``/``ke_mu`` and, for dense models, the assembled free-free
+blocks ``k_lam_ff``/``k_mu_ff``), then moved to the device in the requested
+dtype. A sample's operator is then the two-term sum
+``lam * K_lam + mu * K_mu``.
+
+DOF convention: node n owns dofs (2n, 2n+1), interleaved x/y; element dof
+map ``lm[e] = [2c0, 2c0+1, 2c1, 2c1+1, ...]`` for ``conn[e] = [c0..c3]``.
+
+This package builds the quad4 / plane-strain / dense / unconstrained
+branch; every other branch of the JAX package's ``build_fem_model`` raises
+here.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .config import SectionCard
+from .mesh.feap import MeshData
+from .ops import quadrature
+from .ops.element import C_LAM3, C_MU3
+
+
+@dataclasses.dataclass(frozen=True)
+class FemModel:
+    coords: torch.Tensor  # (nnodes, 2)
+    conn: torch.Tensor  # (nele, 4) int64
+    lm: torch.Tensor  # (nele, 8) int64
+    free_dof: torch.Tensor  # (nfree,) int64
+    supp_dof: torch.Tensor  # (nsupp,) int64
+    free_mask: torch.Tensor  # (ndof,) model dtype, 1 on free dofs
+    f_ext: torch.Tensor  # (ndof,)
+    f_free: torch.Tensor  # (nfree,)
+    B: torch.Tensor  # (nele, nqpt, 3, 8)
+    dvol: torch.Tensor  # (nele, nqpt)
+    ke_lam: torch.Tensor  # (nele, 8, 8)
+    ke_mu: torch.Tensor  # (nele, 8, 8)
+    k_lam_ff: torch.Tensor  # (nfree, nfree)
+    k_mu_ff: torch.Tensor  # (nfree, nfree)
+    nnodes: int
+    nele: int
+    ndof: int
+    nfree: int
+    nqpt: int
+    thk: float
+    stype: int = 2
+    ndm: int = 2
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.coords.dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.coords.device
+
+
+def _dof_maps(mesh: MeshData):
+    """LM / free / supported dof index arrays, 0-based interleaved."""
+    ndof = mesh.nnodes * 2
+    lm = np.empty((mesh.nele, 2 * mesh.max_ele_node), dtype=np.int64)
+    for d in range(2):
+        lm[:, d::2] = mesh.conn * 2 + d
+    fixed = np.zeros(ndof, dtype=bool)
+    for node, flags in zip(mesh.bc_nodes, mesh.bc_flags):
+        for d in range(2):
+            if flags[d]:
+                fixed[2 * node + d] = True
+    return lm, np.nonzero(~fixed)[0], np.nonzero(fixed)[0]
+
+
+def _load_vector(mesh: MeshData, ndof: int):
+    f = np.zeros(ndof, dtype=np.float64)
+    for node, vals in zip(mesh.load_nodes, mesh.load_vals):
+        for d in range(2):
+            f[2 * node + d] += vals[d]
+    return f
+
+
+def _element_geometry(coords, conn, qpts, qwts, thk):
+    """Host-side (NumPy) B-matrix / dvol precompute for all (elem, qpt)."""
+    nele = conn.shape[0]
+    nqpt = qpts.shape[0]
+    xl = coords[conn]  # (nele, 4, 2)
+
+    s = np.array([-1.0, 1.0, 1.0, -1.0])
+    t = np.array([-1.0, -1.0, 1.0, 1.0])
+    B = np.zeros((nele, nqpt, 3, 8))
+    dvol = np.zeros((nele, nqpt))
+    for q in range(nqpt):
+        xi, eta = qpts[q]
+        dn_nat = np.stack([0.25 * s * (1.0 + t * eta), 0.25 * t * (1.0 + s * xi)], axis=1)
+        J = np.einsum("na,enb->eab", dn_nat, xl)  # (nele, 2, 2)
+        detj = J[:, 0, 0] * J[:, 1, 1] - J[:, 0, 1] * J[:, 1, 0]
+        inv_t = (
+            np.stack(
+                [
+                    np.stack([J[:, 1, 1], -J[:, 1, 0]], axis=-1),
+                    np.stack([-J[:, 0, 1], J[:, 0, 0]], axis=-1),
+                ],
+                axis=1,
+            )
+            / detj[:, None, None]
+        )
+        dn_glob = np.einsum("na,eab->enb", dn_nat, inv_t)  # (nele, 4, 2)
+        B[:, q, 0, 0::2] = dn_glob[:, :, 0]
+        B[:, q, 1, 1::2] = dn_glob[:, :, 1]
+        B[:, q, 2, 0::2] = dn_glob[:, :, 1]
+        B[:, q, 2, 1::2] = dn_glob[:, :, 0]
+        dvol[:, q] = thk * detj * qwts[q]
+    return B, dvol
+
+
+def _ke_part_host(B, C, dvol):
+    """``ke[e] = sum_q dvol[e,q] B[e,q]^T C B[e,q]`` as batched matmuls."""
+    nele, nqpt, nr, edof = B.shape
+    CBw = np.matmul(C[None, None], B) * dvol[:, :, None, None]
+    Bf = B.reshape(nele, nqpt * nr, edof)
+    return np.matmul(Bf.transpose(0, 2, 1), CBw.reshape(nele, nqpt * nr, edof))
+
+
+def build_fem_model(
+    mesh: MeshData,
+    section: SectionCard = SectionCard(),
+    *,
+    device,
+    dtype: torch.dtype = torch.float64,
+) -> FemModel:
+    """Preprocess a quad4 plane-strain mesh into a dense FemModel on
+    ``device``. Dense means at most 4096 free dofs, the JAX package's rule;
+    larger meshes need the matrix-free path, not ported yet."""
+    if mesh.space_dim != 2 or mesh.max_node_dof != 2:
+        raise NotImplementedError("3-D solids are not ported yet")
+    if section.etype != 1 or mesh.max_ele_node != 4:
+        raise NotImplementedError("only the quad4 element is ported so far")
+    if section.stype != 2:
+        raise NotImplementedError("only plane strain (stype=2) is ported so far")
+    if mesh.disp_nodes.size:
+        raise NotImplementedError("prescribed displacements are not ported yet")
+
+    lm, free_dof, supp_dof = _dof_maps(mesh)
+    ndof = mesh.nnodes * 2
+    nfree = free_dof.shape[0]
+    if nfree > 4096:
+        raise NotImplementedError(f"{nfree} free dofs need the matrix-free path, not ported yet")
+    f_ext = _load_vector(mesh, ndof)
+
+    qpts, qwts = quadrature.quadr2d(section.intp, mesh.max_ele_node)
+    B, dvol = _element_geometry(mesh.coords, mesh.conn, qpts, qwts, section.thk)
+    ke_lam = _ke_part_host(B, C_LAM3, dvol)
+    ke_mu = _ke_part_host(B, C_MU3, dvol)
+
+    K_lam = np.zeros((ndof, ndof))
+    K_mu = np.zeros((ndof, ndof))
+    for e in range(lm.shape[0]):
+        idx = lm[e]  # duplicate-free for unconstrained element maps
+        K_lam[np.ix_(idx, idx)] += ke_lam[e]
+        K_mu[np.ix_(idx, idx)] += ke_mu[e]
+
+    free_mask = np.zeros(ndof)
+    free_mask[free_dof] = 1.0
+
+    def as_dt(x):
+        return torch.as_tensor(np.ascontiguousarray(x), dtype=dtype, device=device)
+
+    def as_idx(x):
+        return torch.as_tensor(np.asarray(x, dtype=np.int64), device=device)
+
+    return FemModel(
+        coords=as_dt(mesh.coords),
+        conn=as_idx(mesh.conn),
+        lm=as_idx(lm),
+        free_dof=as_idx(free_dof),
+        supp_dof=as_idx(supp_dof),
+        free_mask=as_dt(free_mask),
+        f_ext=as_dt(f_ext),
+        f_free=as_dt(f_ext[free_dof]),
+        B=as_dt(B),
+        dvol=as_dt(dvol),
+        ke_lam=as_dt(ke_lam),
+        ke_mu=as_dt(ke_mu),
+        k_lam_ff=as_dt(K_lam[np.ix_(free_dof, free_dof)]),
+        k_mu_ff=as_dt(K_mu[np.ix_(free_dof, free_dof)]),
+        nnodes=mesh.nnodes,
+        nele=mesh.nele,
+        ndof=ndof,
+        nfree=int(nfree),
+        nqpt=int(qpts.shape[0]),
+        thk=float(section.thk),
+    )

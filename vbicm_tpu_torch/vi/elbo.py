@@ -1,0 +1,135 @@
+"""ELBO terms for the two-step amortized VI scheme (counterpart of
+``vbicm_tpu/vi/elbo.py``, mean-field posterior).
+
+  step 1, q(theta|y):        loss = term1 - term2 - term3
+  step 2, p(z|y) lognormal:  loss = alpha*(term4 - term5) + moment_match_loss
+
+``sig_e`` / ``sig_eta`` are noise variances; ``e_data`` are the fixed
+reparameterization seeds shared between data generation and training.
+``pairing="cross"`` scores every y of the batch against every FEM sample of
+the batch, a (B, B*ne) pair matrix (the reference's broadcast);
+``pairing="per_sample"`` scores each y against its own ne samples.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+
+def term1(log_theta_sig):
+    """Entropy-like term of q(theta|y)."""
+    d = log_theta_sig.shape[-1]
+    return (
+        -0.5 * torch.mean(torch.sum(log_theta_sig, dim=-1), dim=0)
+        - 0.5 * d * math.log(2.0 * math.pi)
+        - 0.5 * d
+    )
+
+
+def reparameterize(theta_mean, theta_sig, e_data, log_theta_sig=None):
+    """theta samples via fixed seeds: (B, d), (B, d), (ne, d) -> (B*ne, d),
+    observation-major. With ``log_theta_sig`` the std is
+    ``exp(0.5 * log_sig)``, the same value as ``sqrt(exp(log_sig))`` with a
+    chain rule that stays finite when ``exp(log_sig)`` underflows to 0."""
+    if log_theta_sig is not None:
+        theta_std = torch.exp(0.5 * log_theta_sig)[:, None, :]
+    else:
+        theta_std = torch.sqrt(theta_sig)[:, None, :]
+    theta = e_data[None, :, :] * theta_std + theta_mean[:, None, :]
+    return theta.reshape(-1, theta.shape[-1])
+
+
+def _pair(obs, samples, ne, pairing):
+    """(B, 1, d) observations against (1, B*ne, d) or (B, ne, d) samples."""
+    if pairing == "cross":
+        return obs[:, None, :], samples[None, :, :]
+    if pairing == "per_sample":
+        return obs[:, None, :], samples.reshape(obs.shape[0], ne, samples.shape[-1])
+    raise ValueError(f"unknown pairing {pairing!r}")
+
+
+def term2(y, theta_mean, theta_sig, e_data, batch_f, sig_e, pairing="cross",
+          log_theta_sig=None):
+    """MC estimate of E_q[log p(y|theta)] with the FEM inside.
+
+    batch_f: thetas (N, d_theta) -> f (N, d_y) (first output of fh).
+    """
+    d_y = y.shape[-1]
+    theta_data = reparameterize(theta_mean, theta_sig, e_data, log_theta_sig)
+    f_data = batch_f(theta_data)  # (B*ne, d_y)
+    l1 = -0.5 * d_y * math.log(2.0 * math.pi * sig_e)
+    yy, ff = _pair(y, f_data, e_data.shape[0], pairing)
+    l2 = -0.5 / sig_e * torch.sum((yy - ff) ** 2, dim=-1)
+    return l1 + torch.mean(l2)
+
+
+def term3(theta_mean, theta_sig):
+    """Cross-entropy to the N(0, I) prior."""
+    d = theta_mean.shape[-1]
+    return -0.5 * d * math.log(2.0 * math.pi) - 0.5 * torch.mean(
+        torch.sum(theta_sig + theta_mean**2, dim=-1), dim=0
+    )
+
+
+def make_loss_step1(batch_f, e_data, sig_e, pairing="cross"):
+    """``loss(y, (theta_mean, theta_sig, log_theta_sig))`` for step 1."""
+
+    def loss(y, outputs):
+        theta_mean, theta_sig, log_theta_sig = outputs
+        t1 = term1(log_theta_sig)
+        t2 = term2(y, theta_mean, theta_sig, e_data, batch_f, sig_e, pairing,
+                   log_theta_sig=log_theta_sig)
+        t3 = term3(theta_mean, theta_sig)
+        return t1 - t2 - t3
+
+    return loss
+
+
+def term4(z_mean, log_z_sig):
+    """Lognormal-entropy term."""
+    d = z_mean.shape[-1]
+    loss = -0.5 * torch.sum(log_z_sig, dim=-1) - torch.sum(z_mean, dim=-1)
+    return torch.mean(loss) - 0.5 * d * math.log(2.0 * math.pi) - 0.5 * d
+
+
+def term5(theta_mean, theta_sig, z_mean, z_sig, e_data, batch_h, sig_eta, pairing="cross"):
+    """E[log p(z|theta)] via lognormal moment identities.
+
+    batch_h: thetas (N, d_theta) -> h (N, d_z) (second output of fh).
+    """
+    d_z = z_mean.shape[-1]
+    h_data = batch_h(reparameterize(theta_mean, theta_sig, e_data))  # (B*ne, d_z)
+    zm = z_mean[:, None, :]
+    zs = z_sig[:, None, :]
+    l1 = -0.5 / sig_eta * torch.sum(torch.exp(2.0 * zm + 2.0 * zs), dim=-1)  # (B, 1)
+    _, h = _pair(z_mean, h_data, e_data.shape[0], pairing)
+    l2 = -0.5 / sig_eta * torch.sum(-2.0 * h * torch.exp(zm + 0.5 * zs) + h**2, dim=-1)
+    l3 = -0.5 * d_z * math.log(2.0 * math.pi * sig_eta)
+    return torch.mean(l1 + l2) + l3
+
+
+def moment_match_loss(z_mean, z_sig, logz_mean_post, logz_sig_post):
+    """MSE anchoring to the cached posterior log-z moments."""
+    return torch.mean((z_mean - logz_mean_post) ** 2) + torch.mean(
+        (z_sig - logz_sig_post) ** 2
+    )
+
+
+def make_loss_step2(batch_h, e_data, sig_eta, alpha, pairing="cross"):
+    """``loss((y, logz_mean_post, logz_sig_post), outputs)`` for step 2,
+    outputs = (theta_mean, theta_sig, z_mean, z_sig, log_z_sig)."""
+
+    def loss(batch, outputs):
+        _, logz_mean_post, logz_sig_post = batch
+        theta_mean, theta_sig, z_mean, z_sig, log_z_sig = outputs
+        mm = moment_match_loss(z_mean, z_sig, logz_mean_post, logz_sig_post)
+        if alpha == 0.0:
+            # terms 4/5 can overflow where h spans decades; 0 * inf would
+            # poison the pure moment-matching loss
+            return mm
+        t4 = term4(z_mean, log_z_sig)
+        t5 = term5(theta_mean, theta_sig, z_mean, z_sig, e_data, batch_h, sig_eta, pairing)
+        return (t4 - t5) * alpha + mm
+
+    return loss
