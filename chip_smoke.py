@@ -1,14 +1,25 @@
 """On-card smoke test of the PyTorch port (``vbicm_tpu_torch``) on one GPU.
 
-Builds the CUDA kernel from the sources in this checkout, holds it against
-its plain PyTorch version, checks the adjoint, the forward parity against
-the reference golden and the mixed-precision observation operator, then
-drives the port's main path once: dataset generation and the two-step VI
-trainer on Cook's membrane 20x10 at the reference's widths (3x20 MLPs, 64
-observations x 4 posterior samples per step, float32 apply plus one float64
-refinement). Prints one line per phase, the card's name and power limit, a
-JSON line with the kernel's record and, last, the ok line. Exits non-zero on
-any failure and when no GPU is present.
+Builds the CUDA kernels from the sources in this checkout and holds each
+against its plain PyTorch version. Then two paths, each driven through the
+entry points a user calls, with the kernels' launch counts set to 0 just
+before and read just after:
+
+- Cook's membrane 20x10 (phases 3-7): the spectral solve's adjoint, forward
+  parity against the reference golden, the mixed-precision observation
+  operator, dataset generation and the two-step VI trainer at the
+  reference's widths (3x20 MLPs, 64 observations x 4 posterior samples per
+  step, float32 apply plus one float64 refinement);
+- the scaled configuration, Cook's membrane 160x80 (26,082 dofs; phases
+  8-12): the stencil kernel, the two-level solve against the JAX package's
+  float64 golden (tests/fixtures/scaled_160x80_golden.json), its adjoint
+  against the dense solve at 40x20, and dataset generation and the two-step
+  trainer through the two-level observation operator (float32 CG + one
+  float64 refinement, 256 full-order solves per step-1 step).
+
+Prints one line per phase, the card's name and power limit, a JSON line with
+the kernels' records and, last, the ok line. Exits non-zero on any failure
+and when no GPU is present.
 
     python3 chip_smoke.py
 """
@@ -17,6 +28,7 @@ import math
 import os
 import subprocess
 import sys
+import time
 
 import numpy as np
 import torch
@@ -24,9 +36,15 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
-SHAPES = [(256, 440), (4096, 440), (5, 440), (130, 130), (20, 200)]
+# (B, n): the 20x10 solve (n = 440) and the 160x80 path's coarse solve
+# (n = 1680 free dofs of the 40x20 coarse mesh)
+SHAPES = [(256, 440), (4096, 440), (5, 440), (130, 130), (20, 200), (256, 1680), (4096, 1680)]
 MAIN_SHAPE = (256, 440)  # one step-1 batch: 64 observations x 4 samples, 440 free dofs
+COARSE_SHAPE = (256, 1680)
 REL_TOL = {torch.float64: 1e-12, torch.float32: 2e-5}
+STENCIL_GRIDS = [(8, 4), (32, 16), (160, 80)]
+STENCIL_BATCHES = [1, 5, 256, 300]
+STENCIL_MAIN = (160, 256)  # (nx, B) of the timed case: the step-1 batch at 160x80
 
 
 def fail(msg):
@@ -102,9 +120,12 @@ def main():
     # 2. kernel against its plain version on the card
     worst = {}
     main_abs_err = None
+    pencils = {}
     for dtype in (torch.float32, torch.float64):
         for B, n in SHAPES:
-            V, g, c, b = pencil_problem(B, n, seed=B + n, dtype=dtype, device=dev)
+            if (B, n) not in pencils:
+                pencils[B, n] = pencil_problem(B, n, seed=B + n, dtype=torch.float64, device=dev)
+            V, g, c, b = (t.to(dtype) for t in pencils[B, n])
             x, a = spectral_apply_batched(V, g, c, b, return_coords=True)
             x_only = spectral_apply_batched(V, g, c, b)
             xr, ar = spectral_apply_reference(V, g, c, b, return_coords=True)
@@ -195,16 +216,21 @@ def main():
     print(f"[7 times] step-1 train steps/s (B=64x4, f32 apply + 1 refinement, epochs 2-3): "
           f"{steps_per_s:.2f} on {card}", flush=True)
     times = {}
-    for dtype in (torch.float32, torch.float64):
-        V, g, c, b = pencil_problem(*MAIN_SHAPE, seed=7, dtype=dtype, device=dev)
-        Vt = V.T.contiguous()
-        saved = spectral_apply_batched.launches
-        k_ms = time_ms(lambda: spectral_apply_batched(V, g, c, b, return_coords=True, Vt=Vt))
-        p_ms = time_ms(lambda: spectral_apply_reference(V, g, c, b, return_coords=True))
-        spectral_apply_batched.launches = saved
-        times[dtype] = (k_ms, p_ms)
-        print(f"[7 times] spectral apply (B, n)={MAIN_SHAPE} {dtype}: kernel {k_ms:.4f} ms, "
-              f"plain {p_ms:.4f} ms, on {card}", flush=True)
+    for shape, reps in ((MAIN_SHAPE, 200), (COARSE_SHAPE, 50)):
+        for dtype in (torch.float32, torch.float64):
+            V, g, c, b = pencil_problem(*shape, seed=7, dtype=dtype, device=dev)
+            Vt = V.T.contiguous()
+            saved = spectral_apply_batched.launches
+            k_ms = time_ms(lambda: spectral_apply_batched(V, g, c, b, return_coords=True, Vt=Vt),
+                           warmup=reps // 10, reps=reps)
+            p_ms = time_ms(lambda: spectral_apply_reference(V, g, c, b, return_coords=True),
+                           warmup=reps // 10, reps=reps)
+            spectral_apply_batched.launches = saved
+            times[shape, dtype] = (k_ms, p_ms)
+            print(f"[7 times] spectral apply (B, n)={shape} {dtype}: kernel {k_ms:.4f} ms, "
+                  f"plain {p_ms:.4f} ms, on {card}", flush=True)
+
+    scaled = scaled_path(dev, card)
 
     print(card)
     print(json.dumps({"kernels": [{
@@ -212,13 +238,191 @@ def main():
         "route": "cuda",
         "source": "vbicm_tpu_torch/csrc/spectral_apply.cu",
         "replaces": "vbicm_tpu/ops/spectral_pallas.py:56",
-        "launches": launches,
+        "launches": launches + scaled["spectral_launches"],
+        "launches_by_path": {"cooks_20x10": launches,
+                             "scaled_160x80": scaled["spectral_launches"]},
         "max_abs_err": main_abs_err,
-        "ms": times[torch.float32][0],
-        "plain_ms": times[torch.float32][1],
+        "ms": times[MAIN_SHAPE, torch.float32][0],
+        "plain_ms": times[MAIN_SHAPE, torch.float32][1],
+        "ms_coarse_256x1680": times[COARSE_SHAPE, torch.float32][0],
+        "plain_ms_coarse_256x1680": times[COARSE_SHAPE, torch.float32][1],
+    }, {
+        "name": "stencil_affine_matvec",
+        "route": "cuda",
+        "source": "vbicm_tpu_torch/csrc/stencil_affine.cu",
+        "replaces": "vbicm_tpu/ops/stencil_pallas.py:71",
+        "launches": scaled["stencil_launches"],
+        "max_abs_err": scaled["stencil_abs_err"],
+        "ms": scaled["stencil_ms"][torch.float32][0],
+        "plain_ms": scaled["stencil_ms"][torch.float32][1],
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))
+
+
+def scaled_path(dev, card):
+    """Phases 8-12: the scaled configuration (Cook's membrane 160x80)."""
+    import dataclasses
+
+    from vbicm_tpu_torch.config import ProblemConfig, TrainConfig
+    from vbicm_tpu_torch.mesh import cooks_membrane_mesh
+    from vbicm_tpu_torch.model import build_fem_model
+    from vbicm_tpu_torch.ops.assembly import element_affine_matvec
+    from vbicm_tpu_torch.ops.element import lame_from_Ev
+    from vbicm_tpu_torch.ops.spectral_kernel import spectral_apply_batched
+    from vbicm_tpu_torch.ops.stencil import StencilOperator
+    from vbicm_tpu_torch.ops.stencil_kernel import stencil_affine_matvec, stencil_affine_reference
+    from vbicm_tpu_torch.prob.datagen import generate_data_fem
+    from vbicm_tpu_torch.solver import make_fh_fun, make_solver, make_two_level_solver
+    from vbicm_tpu_torch.vi.train import TwoStepTrainer
+
+    out = {}
+    # 8. stencil kernel against its plain version, ragged sample tiles
+    worst = {}
+    saved = stencil_affine_matvec.launches
+    for nx, ny in STENCIL_GRIDS:
+        op = StencilOperator(build_fem_model(cooks_membrane_mesh(nx, ny), device=dev,
+                                             dense=False), nx, ny)
+        ndof = 2 * (nx + 1) * (ny + 1)
+        for B in STENCIL_BATCHES:
+            rng = np.random.default_rng(B + nx)
+            u64 = torch.as_tensor(rng.normal(size=(B, ndof)), device=dev)
+            c64 = torch.as_tensor(rng.uniform(1.0, 3.0, (B, 2)), device=dev)
+            for dtype in (torch.float32, torch.float64):
+                u, c = u64.to(dtype), c64.to(dtype)
+                q = op.affine(c, u)
+                qr = stencil_affine_reference(op.W[dtype], c, u)
+                torch.cuda.synchronize()
+                err = rel_err(q, qr)
+                if not err <= REL_TOL[dtype]:
+                    fail(f"stencil kernel vs plain at {nx}x{ny} B={B} {dtype}: rel err {err}")
+                worst[dtype] = max(worst.get(dtype, 0.0), err)
+                if dtype == torch.float32 and (nx, B) == STENCIL_MAIN:
+                    out["stencil_abs_err"] = float((q - qr).abs().max())
+                    stencil_case = (op, c64, u64)
+    stencil_affine_matvec.launches = saved
+    print(f"[8 stencil] ok: max rel err vs plain (of max|q|) f32 {worst[torch.float32]:.3e} "
+          f"(tol 2e-5), f64 {worst[torch.float64]:.3e} (tol 1e-12) over grids {STENCIL_GRIDS} "
+          f"x B in {STENCIL_BATCHES}", flush=True)
+
+    # 9. the two-level solve at 160x80 against the JAX package's f64 golden
+    with open(os.path.join(ROOT, "tests", "fixtures", "scaled_160x80_golden.json")) as f:
+        gold = json.load(f)
+    nx, ny, r = (gold["mesh"][k] for k in ("nx", "ny", "ratio"))
+    model = build_fem_model(cooks_membrane_mesh(nx, ny), device=dev, dense=False)
+    coarse = build_fem_model(cooks_membrane_mesh(nx // r, ny // r), device=dev, dense=True)
+    probe = gold["probe"]
+    cfg = dataclasses.replace(ProblemConfig(), node_id=probe["node_id"], ele_id=probe["ele_id"],
+                              nipt_id=tuple(probe["nipt_id"]))
+    fhs, solvers = {}, {}
+    for residual, tol in (("f64", 1e-6), ("split_f32", 1e-3)):
+        solve = make_two_level_solver(model, coarse, nx // r, ny // r, r, cg_dtype=torch.float32,
+                                      refine_iters=1, tol=3e-3, maxiter=400, use_stencil=True,
+                                      refine_residual=residual)
+        fhs[residual], solvers[residual] = make_fh_fun(model, cfg, solve_free=solve), solve
+        thetas = torch.as_tensor(gold["thetas"], device=dev)
+        with torch.no_grad():
+            y, h = fhs[residual](thetas)
+            tm, ts = cfg.theta_map.theta_mean, cfg.theta_map.theta_std
+            c0, c1 = lame_from_Ev(torch.exp(ts[0] * thetas[:, 0] + tm[0]),
+                                  0.5 * torch.sigmoid(ts[1] * thetas[:, 1] + tm[1]))
+            u = solve(c0, c1)
+            ke = torch.stack([model.ke_lam, model.ke_mu])
+            b = (model.f_ext * model.free_mask).expand(u.shape[0], -1)
+            res = (b - element_affine_matvec(ke, model.lm, torch.stack([c0, c1], -1), u,
+                                             model.ndof)) * model.free_mask
+            rel_res = float((res.norm(dim=-1) / b.norm(dim=-1)).max())
+        errs = (rel_err(y, torch.as_tensor(gold["y"], device=dev)),
+                rel_err(h, torch.as_tensor(gold["h"], device=dev)))
+        iters = [it.tolist() for it in solve.solver.last_cg_iters]
+        if not max(errs) <= tol:
+            fail(f"two-level {residual} vs JAX golden: rel err (y, h) {errs} > {tol}")
+        print(f"[9 two-level] ok: 160x80 f32 CG (tol 3e-3) + 1 {residual} refinement vs JAX f64 "
+              f"golden, rel err y {errs[0]:.3e}, h {errs[1]:.3e} (tol {tol:g}); max relative "
+              f"residual (element matvec, f64) {rel_res:.3e}; CG iterations {iters}", flush=True)
+
+    # 10. adjoint at 40x20 (coarse 10x5) against the dense spectral solve, f64
+    fine40 = build_fem_model(cooks_membrane_mesh(40, 20), device=dev, dense=True)
+    coarse10 = build_fem_model(cooks_membrane_mesh(10, 5), device=dev, dense=True)
+    rng = np.random.default_rng(3)
+    lam = torch.as_tensor(rng.uniform(8.0, 16.0, 64), device=dev)
+    mu = torch.as_tensor(rng.uniform(6.0, 9.0, 64), device=dev)
+    wv = torch.as_tensor(rng.normal(size=(64, fine40.ndof)), device=dev) * fine40.free_mask
+    vals, grads = [], []
+    for solve in (make_two_level_solver(fine40, coarse10, 10, 5, 4, cg_dtype=torch.float32,
+                                        refine_iters=1, tol=3e-3, maxiter=400, use_stencil=True),
+                  make_solver(fine40)):
+        a, m = lam.clone().requires_grad_(True), mu.clone().requires_grad_(True)
+        J = (solve(a, m) * wv).sum(-1)
+        vals.append(J.detach())
+        grads.append(torch.stack(torch.autograd.grad(J.sum(), (a, m)), -1))
+    adj = (rel_err(vals[0], vals[1]), rel_err(grads[0], grads[1]))
+    if not (adj[0] <= 1e-7 and adj[1] <= 1e-6):
+        fail(f"two-level adjoint vs dense at 40x20: rel err (value, grad) {adj} > (1e-7, 1e-6)")
+    print(f"[10 adjoint] ok: 40x20 two-level (f32 CG + 1 f64 refinement) vs dense spectral f64, "
+          f"64 probe functionals: value rel err {adj[0]:.3e} (tol 1e-7), d/d(lam, mu) "
+          f"{adj[1]:.3e} (tol 1e-6)", flush=True)
+
+    # 11. the scaled main path: dataset generation and the two-step trainer
+    #     through the two-level observation operator (f64 refinement)
+    cfg = dataclasses.replace(ProblemConfig(), node_id=model.nnodes, ele_id=(ny // 2) * nx + 12)
+    fh = make_fh_fun(model, cfg, solve_free=solvers["f64"])
+    tcfg = TrainConfig(batch_size=64, num_epoch1=2, num_epoch2=2)
+    spectral_apply_batched.launches = 0
+    stencil_affine_matvec.launches = 0
+    ds = generate_data_fem(torch.Generator().manual_seed(0), fh, n_sam=256, ne_sam=4, device=dev,
+                           sig_e=cfg.sig_e, sig_eta=cfg.sig_eta, chunk=2048)
+    trainer = TwoStepTrainer(None, cfg, tcfg, fh_batch=fh, device=dev)
+    res = trainer.fit(ds.y_data, ds.e_data, torch.Generator().manual_seed(1))
+    torch.cuda.synchronize()
+    out["spectral_launches"] = spectral_apply_batched.launches
+    out["stencil_launches"] = stencil_affine_matvec.launches
+    preds = trainer.predict(res.theta_net, res.z_net, ds.y_data[:8])
+    losses = np.concatenate([res.hist_step1, res.hist_step2])
+    if not np.all(np.isfinite(losses)):
+        fail(f"scaled trainer: non-finite losses: step1 {res.hist_step1}, step2 {res.hist_step2}")
+    if not all(p.shape == (8, 2) and bool(torch.isfinite(p).all()) for p in preds):
+        fail("scaled predict: outputs not finite (8, 2) tensors")
+    if out["spectral_launches"] <= 0 or out["stencil_launches"] <= 0:
+        fail(f"the scaled trainer launched spectral {out['spectral_launches']}, stencil "
+             f"{out['stencil_launches']} times; both must be > 0")
+    print(f"[11 scaled trainer] ok: 160x80, n=256 x ne_sam 4, 2 + 2 epochs at batch 64; step1 "
+          f"losses {res.hist_step1.tolist()}, step2 losses {res.hist_step2.tolist()}; kernel "
+          f"launches stencil {out['stencil_launches']}, spectral {out['spectral_launches']}",
+          flush=True)
+
+    # 12. times (records, not a claim), each beside the card's name and limit
+    steps = math.ceil(ds.n_sam / tcfg.batch_size) * (tcfg.num_epoch1 - 1)
+    print(f"[12 times] scaled step-1 train steps/s (160x80, B=64x4, f32 CG + 1 f64 refinement, "
+          f"epoch 2): {steps / sum(res.epoch_times_step1[1:]):.3f} on {card}", flush=True)
+    op, c64, u64 = stencil_case
+    out["stencil_ms"] = {}
+    saved = stencil_affine_matvec.launches
+    for dtype in (torch.float32, torch.float64):
+        u, c = u64.to(dtype), c64.to(dtype)
+        k_ms = time_ms(lambda: op.affine(c, u))
+        p_ms = time_ms(lambda: stencil_affine_reference(op.W[dtype], c, u), warmup=5, reps=50)
+        out["stencil_ms"][dtype] = (k_ms, p_ms)
+        print(f"[12 times] stencil matvec (B=256, 160x80) {dtype}: kernel {k_ms:.4f} ms, plain "
+              f"{p_ms:.4f} ms, on {card}", flush=True)
+    stencil_affine_matvec.launches = saved
+    thetas = torch.randn((256, 2), generator=torch.Generator().manual_seed(5),
+                         dtype=torch.float64).to(dev)
+    for residual in ("f64", "split_f32"):
+        with torch.no_grad():
+            fhs[residual](thetas)
+            torch.cuda.synchronize()
+            tic = time.perf_counter()
+            for _ in range(3):
+                fhs[residual](thetas)
+            torch.cuda.synchronize()
+        dt = (time.perf_counter() - tic) / 3
+        its = torch.stack(solvers[residual].solver.last_cg_iters).double()
+        print(f"[12 times] two-level fh (160x80, B=256, f32 CG + 1 {residual} refinement): "
+              f"{256 / dt:.1f} solves/s ({dt * 1e3:.1f} ms a batch); CG iterations per solve "
+              f"(first CG, refinement CG) mean {its.mean(1).tolist()}, max "
+              f"{its.max(1).values.tolist()}, on {card}", flush=True)
+    return out
 
 
 if __name__ == "__main__":

@@ -78,7 +78,8 @@ def test_port_imports_no_jax_in_a_fresh_process():
 
 def test_port_sources_import_no_jax():
     files = [os.path.join(ROOT, "chip_smoke.py"),
-             os.path.join(ROOT, "examples", "train_vi_torch.py")]
+             os.path.join(ROOT, "examples", "train_vi_torch.py"),
+             os.path.join(ROOT, "examples", "train_scaled_fullorder_torch.py")]
     for m in pkgutil.walk_packages(vbicm_tpu_torch.__path__, "vbicm_tpu_torch."):
         files.append(importlib.util.find_spec(m.name).origin)
     for path in files:
@@ -100,3 +101,13 @@ def test_chip_smoke_refuses_to_run_without_a_gpu():
                           env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+
+
+def test_scaled_example_refuses_to_run_without_a_gpu():
+    proc = subprocess.run([sys.executable,
+                           os.path.join(ROOT, "examples", "train_scaled_fullorder_torch.py"),
+                           "--nx", "8", "--ny", "4", "--n-data", "8"],
+                          cwd=ROOT, capture_output=True, text=True, timeout=120,
+                          env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    assert proc.returncode != 0
+    assert "no GPU" in proc.stderr

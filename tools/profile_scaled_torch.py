@@ -1,0 +1,151 @@
+"""Profile the PyTorch port's scaled step-1 training step on one GPU: Cook's
+membrane 160x80 (26,082 dofs), batch 64 x 4 posterior samples = 256
+full-order solves through the two-level observation operator (float32 CG +
+one refinement, float64 residuals unless --split-f32), the ELBO's adjoint
+and one Adam update.
+
+Prints the card's name and power limit, the untraced step time, and from a
+``torch.profiler`` trace of --steps steps: device time by kernel family,
+device-busy time (the union of kernel intervals) and the device-idle share
+of the traced wall time. Writes the Chrome trace to --trace.
+
+    python tools/profile_scaled_torch.py --steps 3 --trace scaled_step_trace.json
+"""
+import os as _os, sys as _sys
+_sys.path.insert(0, _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))))
+del _os, _sys
+import argparse
+import collections
+import dataclasses
+import json
+import os
+import subprocess
+import time
+
+import numpy as np
+
+FAMILIES = (  # (family, substrings of the kernel name), first match wins
+    ("stencil kernel", ("stencil_affine_kernel",)),
+    ("spectral kernel", ("spectral_apply_kernel",)),
+    ("cuBLAS GEMM", ("gemm", "gemv", "cutlass", "xmma", "Kernel2")),
+    ("reduction", ("reduce",)),
+    ("index/scatter/gather", ("index", "scatter", "gather")),
+    ("elementwise", ("elementwise", "vectorized", "unrolled", "where", "fill")),
+    ("copy", ("copy", "Memcpy", "Memset", "memcpy", "memset")),
+)
+
+
+def family(name: str) -> str:
+    for fam, keys in FAMILIES:
+        if any(k in name for k in keys):
+            return fam
+    return "other"
+
+
+def busy_us(intervals):
+    """Length of the union of [start, end) intervals, in microseconds."""
+    total, cur_s, cur_e = 0.0, None, None
+    for s, e in sorted(intervals):
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                total += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        total += cur_e - cur_s
+    return total
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--split-f32", action="store_true")
+    ap.add_argument("--trace", type=str, default=None)
+    args = ap.parse_args()
+
+    import torch
+
+    from vbicm_tpu_torch.config import ProblemConfig, TrainConfig
+    from vbicm_tpu_torch.mesh import cooks_membrane_mesh
+    from vbicm_tpu_torch.model import build_fem_model
+    from vbicm_tpu_torch.solver import make_fh_fun, make_two_level_solver
+    from vbicm_tpu_torch.vi.train import TwoStepTrainer
+
+    if not torch.cuda.is_available():
+        raise SystemExit("no GPU is available (torch.cuda.is_available() is False)")
+    dev = torch.device("cuda", 0)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    print(card, flush=True)
+
+    nx, ny = 160, 80
+    model = build_fem_model(cooks_membrane_mesh(nx, ny), device=dev, dense=False)
+    coarse = build_fem_model(cooks_membrane_mesh(nx // 4, ny // 4), device=dev, dense=True)
+    cfg = dataclasses.replace(ProblemConfig(), node_id=model.nnodes, ele_id=(ny // 2) * nx + 12)
+    solve = make_two_level_solver(model, coarse, nx // 4, ny // 4, 4, cg_dtype=torch.float32,
+                                  refine_iters=1, tol=3e-3, maxiter=400, use_stencil=True,
+                                  refine_residual="split_f32" if args.split_f32 else "f64")
+    fh = make_fh_fun(model, cfg, solve_free=solve)
+    trainer = TwoStepTrainer(None, cfg, TrainConfig(), fh_batch=fh, device=dev)
+    gen = torch.Generator().manual_seed(0)
+    net = trainer.new_theta_net(gen)
+    opt = trainer.optimizer_step1(net)
+    rng = np.random.default_rng(0)
+    y = torch.as_tensor(rng.normal(size=(64, 2)) * 0.3 + np.array([-4.4, 5.8]), device=dev)
+    e = torch.as_tensor(rng.normal(size=(4, 2)), device=dev)
+
+    def step():
+        return trainer.update_step1(net, opt, y, e)
+
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    tic = time.perf_counter()
+    for _ in range(args.steps):
+        loss = step()
+    float(loss)
+    untraced = (time.perf_counter() - tic) / args.steps
+    print(f"untraced step: {untraced * 1e3:.1f} ms ({1 / untraced:.3f} steps/s)", flush=True)
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        torch.cuda.synchronize()
+        tic = time.perf_counter()
+        for _ in range(args.steps):
+            loss = step()
+        float(loss)
+        wall = time.perf_counter() - tic
+    # device-side events, less the user annotations the profiler mirrors onto
+    # the device timeline (e.g. "Optimizer.step#Adam.step")
+    kernels = [ev for ev in prof.events()
+               if ev.device_type == torch.autograd.DeviceType.CUDA
+               and not ev.is_user_annotation]
+    by_family = collections.defaultdict(lambda: [0.0, 0])
+    for ev in kernels:
+        fam = by_family[family(ev.name)]
+        fam[0] += ev.time_range.elapsed_us()
+        fam[1] += 1
+    busy = busy_us([(ev.time_range.start, ev.time_range.end) for ev in kernels]) / 1e6
+    total = sum(v[0] for v in by_family.values()) / 1e6
+    print(json.dumps({
+        "card": card, "steps": args.steps, "residual": "split_f32" if args.split_f32 else "f64",
+        "traced_wall_s": wall, "untraced_step_s": untraced,
+        "device_ops": len(kernels), "device_busy_s": busy,
+        "device_idle_share": 1.0 - busy / wall,
+        "kernel_time_s": total,
+        "by_family": {k: {"s": v[0] / 1e6, "share": v[0] / 1e6 / total, "count": v[1]}
+                      for k, v in sorted(by_family.items(), key=lambda kv: -kv[1][0])},
+    }, indent=1), flush=True)
+    top = collections.defaultdict(float)
+    for ev in kernels:
+        top[ev.name[:90]] += ev.time_range.elapsed_us()
+    for name, us in sorted(top.items(), key=lambda kv: -kv[1])[:12]:
+        print(f"  {us / 1e3:9.2f} ms  {name}")
+    if args.trace:
+        os.makedirs(os.path.dirname(os.path.abspath(args.trace)), exist_ok=True)
+        prof.export_chrome_trace(args.trace)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,11 +1,12 @@
 """Build and load the package's CUDA kernels.
 
-The sources under ``csrc/`` have a plain C interface. At first use they are
-compiled with ``nvcc`` for ``sm_90a`` into one shared library under
-``build/vbicm_tpu_torch/`` at the root of the checkout, and loaded with
-``ctypes``. The library's file name carries a hash of the sources and flags,
-so an edited source builds anew and a stale library is never loaded. Nothing
-is fetched; a failed build raises.
+The sources under ``csrc/`` (the spectral apply and the stencil matvec) have
+a plain C interface. At first use each is compiled with ``nvcc`` for
+``sm_90a``, all at once in parallel processes, and the objects are linked
+into one shared library under ``build/vbicm_tpu_torch/`` at the root of the
+checkout, loaded with ``ctypes``. The library's file name carries a hash of
+the sources and flags, so an edited source builds anew and a stale library
+is never loaded. Nothing is fetched; a failed build raises.
 """
 from __future__ import annotations
 
@@ -22,7 +23,7 @@ _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "vbicm_tpu_torch")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _PTR = ctypes.c_void_p
@@ -31,6 +32,9 @@ _SIGNATURES = {
     # (V, Vt, g, coeffs, b, x, a, B, n, tile, stream) -> cudaError_t
     "vbicm_spectral_apply_f32": [_PTR] * 7 + [_INT] * 3 + [_PTR],
     "vbicm_spectral_apply_f64": [_PTR] * 7 + [_INT] * 3 + [_PTR],
+    # (w, coeffs, u, q, B, NY, NX2, TS, threads, stream) -> cudaError_t
+    "vbicm_stencil_affine_f32": [_PTR] * 4 + [_INT] * 5 + [_PTR],
+    "vbicm_stencil_affine_f64": [_PTR] * 4 + [_INT] * 5 + [_PTR],
 }
 
 
@@ -64,13 +68,25 @@ def load_library():
     if not os.path.exists(lib_path):
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{lib_path}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources]
+        nvcc = _nvcc()
+        objs = [f"{tmp}.{os.path.basename(src)}.o" for src in sources]
         tic = time.perf_counter()
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, src], text=True,
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+                 for src, obj in zip(sources, objs)]
+        outs = [p.communicate()[0] for p in procs]
+        log = "".join(outs)
+        for p, src in zip(procs, sources):
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({p.returncode}) on {src}:\n{log}")
+        cmd = [nvcc, "-shared", "-o", tmp, *objs]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         seconds = time.perf_counter() - tic
-        log = proc.stdout + proc.stderr
+        log += proc.stdout + proc.stderr
+        for obj in objs:
+            os.remove(obj)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
         with open(log_path, "w") as f:
             f.write(log)
         os.replace(tmp, lib_path)  # atomic: a concurrent build never sees half a file

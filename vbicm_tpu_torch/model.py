@@ -4,20 +4,22 @@
 Everything theta-independent is built once on the host in float64 with
 NumPy (B-matrices, ``dvol = thk * detJ * w``, the affine element stiffness
 parts ``ke_lam``/``ke_mu`` and, for dense models, the assembled free-free
-blocks ``k_lam_ff``/``k_mu_ff``), then moved to the device in the requested
+blocks ``k_lam_ff``/``k_mu_ff``; a matrix-free model leaves them ``None``),
+then moved to the device in the requested
 dtype. A sample's operator is then the two-term sum
 ``lam * K_lam + mu * K_mu``.
 
 DOF convention: node n owns dofs (2n, 2n+1), interleaved x/y; element dof
 map ``lm[e] = [2c0, 2c0+1, 2c1, 2c1+1, ...]`` for ``conn[e] = [c0..c3]``.
 
-This package builds the quad4 / plane-strain / dense / unconstrained
-branch; every other branch of the JAX package's ``build_fem_model`` raises
+This package builds the quad4 / plane-strain / unconstrained branch, dense
+or matrix-free; every other branch of the JAX package's ``build_fem_model`` raises
 here.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -42,14 +44,15 @@ class FemModel:
     dvol: torch.Tensor  # (nele, nqpt)
     ke_lam: torch.Tensor  # (nele, 8, 8)
     ke_mu: torch.Tensor  # (nele, 8, 8)
-    k_lam_ff: torch.Tensor  # (nfree, nfree)
-    k_mu_ff: torch.Tensor  # (nfree, nfree)
+    k_lam_ff: Optional[torch.Tensor]  # (nfree, nfree); None when matrix-free
+    k_mu_ff: Optional[torch.Tensor]
     nnodes: int
     nele: int
     ndof: int
     nfree: int
     nqpt: int
     thk: float
+    dense: bool = True
     stype: int = 2
     ndm: int = 2
 
@@ -131,11 +134,14 @@ def build_fem_model(
     section: SectionCard = SectionCard(),
     *,
     device,
+    dense: Optional[bool] = None,
     dtype: torch.dtype = torch.float64,
 ) -> FemModel:
-    """Preprocess a quad4 plane-strain mesh into a dense FemModel on
-    ``device``. Dense means at most 4096 free dofs, the JAX package's rule;
-    larger meshes need the matrix-free path, not ported yet."""
+    """Preprocess a quad4 plane-strain mesh into a FemModel on ``device``.
+
+    ``dense=None`` chooses, as the JAX package does: the assembled
+    free-free parts when there are at most 4096 free dofs, matrix-free
+    (``k_lam_ff``/``k_mu_ff`` left ``None``) above that."""
     if mesh.space_dim != 2 or mesh.max_node_dof != 2:
         raise NotImplementedError("3-D solids are not ported yet")
     if section.etype != 1 or mesh.max_ele_node != 4:
@@ -148,8 +154,8 @@ def build_fem_model(
     lm, free_dof, supp_dof = _dof_maps(mesh)
     ndof = mesh.nnodes * 2
     nfree = free_dof.shape[0]
-    if nfree > 4096:
-        raise NotImplementedError(f"{nfree} free dofs need the matrix-free path, not ported yet")
+    if dense is None:
+        dense = nfree <= 4096
     f_ext = _load_vector(mesh, ndof)
 
     qpts, qwts = quadrature.quadr2d(section.intp, mesh.max_ele_node)
@@ -157,21 +163,25 @@ def build_fem_model(
     ke_lam = _ke_part_host(B, C_LAM3, dvol)
     ke_mu = _ke_part_host(B, C_MU3, dvol)
 
-    K_lam = np.zeros((ndof, ndof))
-    K_mu = np.zeros((ndof, ndof))
-    for e in range(lm.shape[0]):
-        idx = lm[e]  # duplicate-free for unconstrained element maps
-        K_lam[np.ix_(idx, idx)] += ke_lam[e]
-        K_mu[np.ix_(idx, idx)] += ke_mu[e]
-
-    free_mask = np.zeros(ndof)
-    free_mask[free_dof] = 1.0
-
     def as_dt(x):
         return torch.as_tensor(np.ascontiguousarray(x), dtype=dtype, device=device)
 
     def as_idx(x):
         return torch.as_tensor(np.asarray(x, dtype=np.int64), device=device)
+
+    k_lam_ff = k_mu_ff = None
+    if dense:
+        K_lam = np.zeros((ndof, ndof))
+        K_mu = np.zeros((ndof, ndof))
+        for e in range(lm.shape[0]):
+            idx = lm[e]  # duplicate-free for unconstrained element maps
+            K_lam[np.ix_(idx, idx)] += ke_lam[e]
+            K_mu[np.ix_(idx, idx)] += ke_mu[e]
+        k_lam_ff = as_dt(K_lam[np.ix_(free_dof, free_dof)])
+        k_mu_ff = as_dt(K_mu[np.ix_(free_dof, free_dof)])
+
+    free_mask = np.zeros(ndof)
+    free_mask[free_dof] = 1.0
 
     return FemModel(
         coords=as_dt(mesh.coords),
@@ -186,12 +196,13 @@ def build_fem_model(
         dvol=as_dt(dvol),
         ke_lam=as_dt(ke_lam),
         ke_mu=as_dt(ke_mu),
-        k_lam_ff=as_dt(K_lam[np.ix_(free_dof, free_dof)]),
-        k_mu_ff=as_dt(K_mu[np.ix_(free_dof, free_dof)]),
+        k_lam_ff=k_lam_ff,
+        k_mu_ff=k_mu_ff,
         nnodes=mesh.nnodes,
         nele=mesh.nele,
         ndof=ndof,
         nfree=int(nfree),
         nqpt=int(qpts.shape[0]),
         thk=float(section.thk),
+        dense=bool(dense),
     )

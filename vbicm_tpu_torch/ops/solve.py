@@ -1,5 +1,8 @@
-"""Differentiable spectral solver for two-term affine pencils (counterpart of
-``vbicm_tpu/ops/solve.py::make_spectral_affine_solver``).
+"""Differentiable batched solvers for the affine operator K(c) = c0*A + c1*B
+(counterpart of ``vbicm_tpu/ops/solve.py``): the spectral pencil solver for
+dense models, and matrix-free preconditioned CG for refined meshes.
+
+Spectral solver (``make_spectral_affine_solver``).
 
 With A = parts[0] symmetric PSD (the lam-part of the stiffness) and
 B = parts[1] SPD (the mu-part), the generalized eigenproblem A V = B V diag(g)
@@ -25,6 +28,7 @@ import numpy as np
 import scipy.linalg
 import torch
 
+from .assembly import element_affine_matvec, jacobi_diagonal
 from .spectral_kernel import spectral_apply_batched
 
 
@@ -98,3 +102,222 @@ def make_spectral_affine_solver(parts, *, apply_dtype=None, refine_iters: int = 
     ``refine_iters`` refinements bring the result back to the parts' dtype.
     """
     return SpectralAffineSolver(parts, apply_dtype, refine_iters)
+
+
+# ---------------------------------------------------------------------------
+# Matrix-free preconditioned conjugate gradients (refined meshes)
+# ---------------------------------------------------------------------------
+
+# pcg reads back whether any lane is still active every this many iterations:
+# each read is a device sync, and a frozen lane does not change, so the
+# result does not depend on it.
+_CHECK_EVERY = 8
+
+
+def _dot(a, b):
+    return torch.einsum("bi,bi->b", a, b)
+
+
+def pcg(matvec, b, prec, *, tol=1e-12, maxiter=1000):
+    """Batched preconditioned CG with the per-lane semantics of the JAX
+    package's ``jax.vmap(pcg)``.
+
+    ``matvec(x (B, n)) -> (B, n)`` already applies the free-dof mask;
+    ``prec(r) -> z`` is the batched preconditioner. Each lane has its own
+    right-hand-side normalization, its own convergence test
+    ``||r||^2 <= tol^2 ||b||^2`` and its own breakdown flag (a non-positive
+    or NaN ``p'Kp`` or ``(r, z)``, which freezes the lane for good); a lane
+    that is converged, broken down or at ``maxiter`` keeps its state.
+
+    Returns (x (B, n), iterations (B,) int64, residual_norm_sq (B,)).
+    """
+    rdt = b.dtype
+    tiny = 1e-30 if rdt == torch.float32 else 1e-300
+    scale = torch.sqrt(torch.clamp_min(_dot(b, b), tiny))
+    b = b / scale[:, None]
+    bnorm = torch.clamp_min(_dot(b, b), tiny)
+    thresh = tol * tol * bnorm
+    x = torch.zeros_like(b)
+    r = b.clone()  # b - matvec(0)
+    z = prec(r)
+    p = z.clone()
+    rz = _dot(r, z)
+    rr = _dot(r, r)
+    it = torch.zeros(b.shape[0], dtype=torch.int64, device=b.device)
+    dead = torch.zeros(b.shape[0], dtype=torch.bool, device=b.device)
+    for k in range(maxiter):
+        active = ~(rr <= thresh) & ~dead  # a NaN residual stays active, as in JAX
+        if k % _CHECK_EVERY == 0 and not bool(active.any()):
+            break
+        kp = matvec(p)
+        denom = _dot(p, kp)
+        bad = ~(denom > 0)  # catches <= 0 and NaN
+        alpha = torch.where(bad, 0.0, rz / torch.where(denom == 0, 1.0, denom))
+        # the state is updated in place, and only on active lanes
+        a = active[:, None]
+        torch.where(a, x + alpha[:, None] * p, x, out=x)
+        r_n = r - alpha[:, None] * kp
+        z_n = prec(r_n)
+        rz_n = _dot(r_n, z_n)
+        dead_n = dead | (active & (bad | ~(rz_n > 0)))
+        beta = torch.where(dead_n, 0.0, rz_n / torch.where(rz == 0, 1.0, rz))
+        torch.where(a, z_n + beta[:, None] * p, p, out=p)
+        torch.where(a, r_n, r, out=r)
+        torch.where(a, z_n, z, out=z)
+        rz = torch.where(active & ~dead_n, rz_n, rz)
+        rr = _dot(r, r)
+        it += active
+        dead = torch.where(active, dead_n, dead)
+    return x * scale[:, None], it, rr * scale * scale
+
+
+class MatfreeAffineSolver:
+    """``solve(coeffs (B, P), f (B, ndof)) -> u (B, ndof)`` for
+    ``K(c) u = f`` on the free dofs, with the adjoint backward pass; built by
+    :func:`make_matfree_affine_solver`. ``last_cg_iters`` holds the per-lane
+    CG iteration counts of the last solve's CG runs (the first solve and
+    each refinement), as device tensors."""
+
+    def __init__(self, ke_parts, lm, free_mask, ndof, *, tol, maxiter, cg_dtype, refine_iters,
+                 preconditioner, affine_matvec, diag_parts, refine_residual):
+        if refine_residual == "compensated":
+            raise NotImplementedError(
+                "refine_residual='compensated' is not ported: on the H100 the float64 "
+                "residual is the cheaper one (PERF.md; ROADMAP Queue 1 item 12)")
+        if refine_residual not in ("f64", "split_f32"):
+            raise ValueError(f"unknown refine_residual {refine_residual!r}")
+        wdt = ke_parts.dtype
+        self.cg_dtype = wdt if cg_dtype is None else cg_dtype
+        if refine_residual == "split_f32" and self.cg_dtype != torch.float32:
+            raise ValueError("refine_residual='split_f32' needs cg_dtype=float32")
+        self.ke_parts = {wdt: ke_parts, self.cg_dtype: ke_parts.to(self.cg_dtype)}
+        self.lm = lm
+        self.ndof = int(ndof)
+        self.tol = float(tol)
+        self.maxiter = int(maxiter)
+        self.refine_iters = int(refine_iters)
+        self.refine_residual = refine_residual
+        self.preconditioner = preconditioner
+        self.affine_matvec = affine_matvec
+        self.free_mask = free_mask
+        self.mask_cg = free_mask.to(self.cg_dtype)
+        if diag_parts is None:
+            diag_parts = torch.stack([jacobi_diagonal(ke_parts[p], lm, ndof)
+                                      for p in range(ke_parts.shape[0])])
+        self.diag_parts = diag_parts.to(self.cg_dtype)
+        self.last_cg_iters = []
+
+    def affine(self, coeffs, u):
+        """``K(c) u`` in u's dtype: the given fused apply, or the element
+        path."""
+        if self.affine_matvec is not None:
+            return self.affine_matvec(coeffs, u)
+        return element_affine_matvec(self.ke_parts[u.dtype], self.lm, coeffs, u, self.ndof)
+
+    def _cg_once(self, coeffs, b):
+        """One PCG solve in the CG dtype, for the masked rhs b."""
+        mask = self.mask_cg
+        c = coeffs.to(self.cg_dtype)
+
+        def mv(x):
+            return self.affine(c, x * mask) * mask + x * (1.0 - mask)
+
+        d = c @ self.diag_parts
+        d = torch.where(mask > 0, torch.where(d == 0, 1.0, d), 1.0)
+        minv = 1.0 / d
+        if self.preconditioner is not None:
+            prec = lambda r: self.preconditioner(coeffs, minv, r)  # noqa: E731
+        else:
+            prec = lambda r: minv * r  # noqa: E731
+        bc = (b * self.free_mask).to(self.cg_dtype)
+        x, iters, _ = pcg(mv, bc, prec, tol=self.tol, maxiter=self.maxiter)
+        self.last_cg_iters.append(iters)
+        return x
+
+    def _residual(self, coeffs, b, x):
+        mask = self.free_mask
+        if self.refine_residual == "split_f32":
+            # x = x1 + x2 exactly in two float32 halves; the residual's error
+            # is the float32 rounding of the two applies
+            x1 = x.to(torch.float32)
+            x2 = (x - x1.to(x.dtype)).to(torch.float32)
+            q = (self.affine(coeffs, x1 * self.mask_cg).to(x.dtype)
+                 + self.affine(coeffs, x2 * self.mask_cg).to(x.dtype))
+            return (b - q) * mask
+        # fixed-dof identity term cancels since x, r live on free dofs
+        return b * mask - self.affine(coeffs, x * mask) * mask
+
+    def solve_once(self, coeffs, b):
+        self.last_cg_iters = []
+        x = self._cg_once(coeffs, b).to(b.dtype)
+        for _ in range(self.refine_iters):
+            r = self._residual(coeffs, b, x)
+            x = x + self._cg_once(coeffs, r).to(b.dtype)
+        return x * self.free_mask
+
+    def __call__(self, coeffs, f):
+        return _MatfreeSolve.apply(coeffs, f, self)
+
+
+class _MatfreeSolve(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, coeffs, f, solver):
+        u = solver.solve_once(coeffs, f)
+        ctx.save_for_backward(coeffs, u)
+        ctx.solver = solver
+        return u
+
+    @staticmethod
+    def backward(ctx, ubar):
+        coeffs, u = ctx.saved_tensors
+        solver = ctx.solver
+        w = solver.solve_once(coeffs, ubar)
+        cbar = None
+        if ctx.needs_input_grad[0]:
+            # cbar_p = -<w, K_p u> on the free dofs, per sample: K_p u is the
+            # affine apply with unit coefficients
+            unit = torch.eye(coeffs.shape[1], dtype=u.dtype, device=u.device)
+            cbar = torch.stack(
+                [-_dot(w, solver.affine(unit[p].expand(u.shape[0], -1), u) * solver.free_mask)
+                 for p in range(coeffs.shape[1])], dim=-1).to(coeffs.dtype)
+        return cbar, w, None
+
+
+def make_matfree_affine_solver(
+    ke_parts,
+    lm,
+    free_mask,
+    ndof: int,
+    *,
+    tol: float = 1e-12,
+    maxiter: int = 2000,
+    cg_dtype=None,
+    refine_iters: int = 0,
+    preconditioner=None,
+    affine_matvec=None,
+    diag_parts=None,
+    refine_residual: str = "f64",
+):
+    """Differentiable batched matrix-free solver for the affine operator
+    ``K(c) = sum_p c_p K_p`` (counterpart of the JAX package's
+    ``make_matfree_affine_solver``).
+
+    ke_parts (P, nele, edof, edof) element bases, lm (nele, edof), free_mask
+    (ndof,) 0/1. ``solve(coeffs (B, P), f (B, ndof)) -> u (B, ndof)`` with
+    zeros on the fixed dofs. ``affine_matvec(coeffs, u) -> K(c) u`` replaces
+    the element gather/einsum/scatter for every application, float32 and
+    float64 (e.g. the stencil kernel, ``ops.stencil``); pass ``diag_parts``
+    (P, ndof) with it. ``preconditioner(coeffs, diag_inv, r) -> z`` replaces
+    Jacobi.
+
+    Mixed precision: ``cg_dtype=torch.float32`` runs the CG in float32 and
+    ``refine_iters`` refinements, with residuals taken in float64
+    (``refine_residual="f64"``) or from two float32 applies of the split
+    iterate (``"split_f32"``), bring the answer back. The backward pass is
+    the same refined solve applied to the cotangent, w, and
+    ``cbar_p = -<w, K_p u>``.
+    """
+    return MatfreeAffineSolver(ke_parts, lm, free_mask, ndof, tol=tol, maxiter=maxiter,
+                               cg_dtype=cg_dtype, refine_iters=refine_iters,
+                               preconditioner=preconditioner, affine_matvec=affine_matvec,
+                               diag_parts=diag_parts, refine_residual=refine_residual)

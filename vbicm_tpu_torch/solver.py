@@ -10,15 +10,19 @@ batch dimension the JAX package gets from ``jax.vmap``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
+import scipy.linalg
 import torch
 
 from .config import MaterialCard, ProblemConfig
 from .model import FemModel
 from .ops.element import material_coeffs, stress6_plane_strain
-from .ops.solve import make_spectral_affine_solver
+from .ops.multigrid import make_grid_transfer_conv, make_two_level_preconditioner
+from .ops.solve import make_matfree_affine_solver, make_spectral_affine_solver
+from .ops.spectral_kernel import spectral_apply_batched
+from .ops.stencil import make_stencil_affine_matvec
 from .ops.vonmises import von_mises_reference
 
 
@@ -110,6 +114,7 @@ def make_fh_fun(
     *,
     factor_dtype=None,
     refine_iters: int = 0,
+    solve_free: Optional[Callable] = None,
 ) -> Callable:
     """Build the batched observation operator
     ``fh(thetas (B, 2)) -> (y (B, 2), h (B, 2))``.
@@ -117,8 +122,11 @@ def make_fh_fun(
     E = exp(std0 * t0 + mean0), nu = 0.5 * sigmoid(std1 * t1 + mean1);
     y = (ux, uy) at ``cfg.node_id``; h = reference von Mises at
     ``cfg.ele_id``, qpts ``cfg.nipt_id``. Differentiable in thetas.
+    ``solve_free(c0 (B,), c1 (B,)) -> u (B, ndof)`` overrides the spectral
+    solver (e.g. :func:`make_two_level_solver`).
     """
-    solve_free = make_solver(model, factor_dtype=factor_dtype, refine_iters=refine_iters)
+    if solve_free is None:
+        solve_free = make_solver(model, factor_dtype=factor_dtype, refine_iters=refine_iters)
     if not (1 <= cfg.node_id <= model.nnodes):
         raise ValueError(f"probe node_id {cfg.node_id} outside [1, {model.nnodes}]")
     if not (1 <= cfg.ele_id <= model.nele):
@@ -144,3 +152,106 @@ def make_fh_fun(
         return y, von_mises_reference(sig6)
 
     return fh
+
+
+def make_coarse_spectral_apply(coarse_model: FemModel) -> Callable:
+    """Exact coarse-grid solve ``(coeffs (B, 2), r_full (B, ndof_c)) ->
+    K_c(coeffs)^-1 r_full`` through the coarse pencil's eigenbasis and the
+    spectral kernel, zeros on the coarse supports; the coarse part of the
+    two-level preconditioner. It follows its input's dtype: float32 inside
+    a float32 CG, float64 otherwise. The float32 apply is full float32."""
+    g, V = scipy.linalg.eigh(coarse_model.k_lam_ff.cpu().numpy(),
+                             coarse_model.k_mu_ff.cpu().numpy())
+    device = coarse_model.device
+    tables = {}
+    for dt in (torch.float32, torch.float64):
+        Vd = torch.as_tensor(V, dtype=dt, device=device).contiguous()
+        tables[dt] = (Vd, Vd.T.contiguous(), torch.as_tensor(g, dtype=dt, device=device))
+    free = coarse_model.free_dof
+    embed = _make_free_embed(coarse_model)
+
+    def apply(coeffs, r_full):
+        V_, Vt, g_ = tables[r_full.dtype]
+        c = coeffs.to(r_full.dtype).contiguous()
+        return embed(spectral_apply_batched(V_, g_, c, r_full[:, free].contiguous(), Vt=Vt))
+
+    return apply
+
+
+def make_two_level_solver(
+    model: FemModel,
+    coarse_model: FemModel,
+    nx_coarse: int,
+    ny_coarse: int,
+    ratio: int,
+    *,
+    cg_dtype=None,
+    refine_iters: int = 0,
+    tol: float = 1e-10,
+    maxiter: int = 500,
+    omega: float = 0.6,
+    use_stencil: bool = False,
+    refine_residual: str = "f64",
+    cycle: str = "additive",
+    transfer: str = "conv",
+    with_rhs_solver: bool = False,
+) -> Callable:
+    """Matrix-free solver with the spectral-coarse two-level preconditioner,
+    the full-order path for refined Cook's meshes. Returns
+    ``solve_free(c0 (B,), c1 (B,)) -> u (B, ndof)`` with the adjoint
+    backward pass; ``solve_free.solver`` is the underlying
+    ``ops.solve.MatfreeAffineSolver`` (its ``last_cg_iters``).
+
+    The fine grid is (nx_coarse*ratio, ny_coarse*ratio). The CG runs in
+    structured-grid form: K(c) as the stencil kernel (``ops.stencil``), the
+    transfers as the 1-D hat products of ``ops.multigrid.
+    make_grid_transfer_conv``, the coarse solve through the spectral kernel
+    (:func:`make_coarse_spectral_apply`). ``cg_dtype``, ``refine_iters`` and
+    ``refine_residual`` ("f64" or "split_f32") are those of
+    ``ops.solve.make_matfree_affine_solver``.
+
+    Only the production settings are ported: ``use_stencil=True``,
+    ``cycle="additive"``, ``transfer="conv"``; the JAX package's other
+    options raise. Its ``coarse_f32_precision`` is not taken: the float32
+    coarse apply here is always full float32.
+    """
+    if not use_stencil:
+        raise NotImplementedError("use_stencil=False (the element-path two-level solver) is "
+                                  "not ported; ROADMAP Queue 1 item 7")
+    if cycle != "additive":
+        raise NotImplementedError(f"cycle={cycle!r} is not ported (only 'additive'); "
+                                  "ROADMAP Queue 1 item 12")
+    if transfer != "conv":
+        raise NotImplementedError(f"transfer={transfer!r} is not ported (only 'conv'); "
+                                  "ROADMAP Queue 1 item 12")
+    if with_rhs_solver:
+        raise NotImplementedError("with_rhs_solver (the modal solver's rhs solve) is not "
+                                  "ported; ROADMAP Queue 1 item 9")
+    affine, _, diag_parts = make_stencil_affine_matvec(model, nx_coarse * ratio,
+                                                       ny_coarse * ratio)
+    transfer_ops = make_grid_transfer_conv(nx_coarse, ny_coarse, ratio, device=model.device)
+    prec = make_two_level_preconditioner(make_coarse_spectral_apply(coarse_model),
+                                         model.free_mask, transfer_ops, omega=omega)
+    base = make_matfree_affine_solver(
+        torch.stack([model.ke_lam, model.ke_mu]),
+        model.lm,
+        model.free_mask,
+        model.ndof,
+        tol=tol,
+        maxiter=maxiter,
+        cg_dtype=cg_dtype,
+        refine_iters=refine_iters,
+        preconditioner=prec,
+        affine_matvec=affine,
+        diag_parts=diag_parts,
+        refine_residual=refine_residual,
+    )
+    # the full-dof load on the free dofs; prescribed displacements (the JAX
+    # package's Dirichlet lift) are not ported, so it is constant
+    f_masked = model.f_ext * model.free_mask
+
+    def solve_free(c0, c1):
+        return base(torch.stack([c0, c1], dim=-1), f_masked.expand(c0.shape[0], -1))
+
+    solve_free.solver = base
+    return solve_free
