@@ -15,7 +15,14 @@ before and read just after:
   float64 golden (tests/fixtures/scaled_160x80_golden.json), its adjoint
   against the dense solve at 40x20, and dataset generation and the two-step
   trainer through the two-level observation operator (float32 CG + one
-  float64 refinement, 256 full-order solves per step-1 step).
+  float64 refinement, 256 full-order solves per step-1 step);
+- the 3-D hex8 box (phases 13-17): the 27-point stencil kernel on grids up
+  to 64x16x16 (56,355 dofs), the box two-level solve against the JAX
+  package's float64 golden (tests/fixtures/scaled_3d_golden.json) for the
+  trainer's 32x8x8 cantilever and the 64x16x16 solve, its adjoint against
+  the dense solve at 8x4x4, and dataset generation and the two-step trainer
+  at 32x8x8 (8,019 dofs; float32 CG + one float64 refinement, input
+  standardization, per-sample pairing).
 
 Prints one line per phase, the card's name and power limit, a JSON line with
 the kernels' records and, last, the ok line. Exits non-zero on any failure
@@ -36,15 +43,24 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
-# (B, n): the 20x10 solve (n = 440) and the 160x80 path's coarse solve
-# (n = 1680 free dofs of the 40x20 coarse mesh)
-SHAPES = [(256, 440), (4096, 440), (5, 440), (130, 130), (20, 200), (256, 1680), (4096, 1680)]
+# (B, n): the 20x10 solve (n = 440), the 160x80 path's coarse solve (n = 1680
+# free dofs of the 40x20 coarse mesh) and the 3-D path's (n = 1200 of the
+# 16x4x4 coarse box: B = 256 in the step, 512 in data generation and the
+# bridge)
+SHAPES = [(256, 440), (4096, 440), (5, 440), (130, 130), (20, 200), (256, 1680), (4096, 1680),
+          (256, 1200), (512, 1200)]
 MAIN_SHAPE = (256, 440)  # one step-1 batch: 64 observations x 4 samples, 440 free dofs
 COARSE_SHAPE = (256, 1680)
 REL_TOL = {torch.float64: 1e-12, torch.float32: 2e-5}
 STENCIL_GRIDS = [(8, 4), (32, 16), (160, 80)]
 STENCIL_BATCHES = [1, 5, 256, 300]
 STENCIL_MAIN = (160, 256)  # (nx, B) of the timed case: the step-1 batch at 160x80
+# 3-D hex8 box grids (nx, ny, nz) of the kernel check; the trainer's grid
+# (32x8x8) at B = 256 is the JSON line's case
+BOX_GRIDS = [(4, 2, 2), (32, 8, 8), (64, 16, 16)]
+BOX_MAIN = ((32, 8, 8), 256)
+BOX_COARSE_SHAPE = (256, 1200)  # the 3-D coarse solve: 16x4x4, 1200 free dofs
+BOX_FH_BATCHES = (64, 256)  # the timed 64x16x16 solves (bench.py's B, and B = 256)
 
 
 def fail(msg):
@@ -231,6 +247,7 @@ def main():
                   f"plain {p_ms:.4f} ms, on {card}", flush=True)
 
     scaled = scaled_path(dev, card)
+    box = box3d_path(dev, card)
 
     print(card)
     print(json.dumps({"kernels": [{
@@ -238,14 +255,17 @@ def main():
         "route": "cuda",
         "source": "vbicm_tpu_torch/csrc/spectral_apply.cu",
         "replaces": "vbicm_tpu/ops/spectral_pallas.py:56",
-        "launches": launches + scaled["spectral_launches"],
+        "launches": launches + scaled["spectral_launches"] + box["spectral_launches"],
         "launches_by_path": {"cooks_20x10": launches,
-                             "scaled_160x80": scaled["spectral_launches"]},
+                             "scaled_160x80": scaled["spectral_launches"],
+                             "box3d_32x8x8": box["spectral_launches"]},
         "max_abs_err": main_abs_err,
         "ms": times[MAIN_SHAPE, torch.float32][0],
         "plain_ms": times[MAIN_SHAPE, torch.float32][1],
         "ms_coarse_256x1680": times[COARSE_SHAPE, torch.float32][0],
         "plain_ms_coarse_256x1680": times[COARSE_SHAPE, torch.float32][1],
+        "ms_coarse_256x1200": box["spectral_ms"][0],
+        "plain_ms_coarse_256x1200": box["spectral_ms"][1],
     }, {
         "name": "stencil_affine_matvec",
         "route": "cuda",
@@ -255,6 +275,17 @@ def main():
         "max_abs_err": scaled["stencil_abs_err"],
         "ms": scaled["stencil_ms"][torch.float32][0],
         "plain_ms": scaled["stencil_ms"][torch.float32][1],
+    }, {
+        "name": "stencil3d_affine_matvec",
+        "route": "cuda",
+        "source": "vbicm_tpu_torch/csrc/stencil3d_affine.cu",
+        "replaces": "vbicm_tpu/ops/stencil3d_pallas.py:63",
+        "launches": box["stencil3d_launches"],
+        "max_abs_err": box["stencil3d_abs_err"],
+        "ms": box["stencil3d_ms"][(32, 8, 8), torch.float32][0],
+        "plain_ms": box["stencil3d_ms"][(32, 8, 8), torch.float32][1],
+        "ms_64x16x16": box["stencil3d_ms"][(64, 16, 16), torch.float32][0],
+        "plain_ms_64x16x16": box["stencil3d_ms"][(64, 16, 16), torch.float32][1],
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))
@@ -320,7 +351,7 @@ def scaled_path(dev, card):
                                       refine_iters=1, tol=3e-3, maxiter=400, use_stencil=True,
                                       refine_residual=residual)
         fhs[residual], solvers[residual] = make_fh_fun(model, cfg, solve_free=solve), solve
-        thetas = torch.as_tensor(gold["thetas"], device=dev)
+        thetas = torch.as_tensor(gold["thetas"], dtype=torch.float64, device=dev)
         with torch.no_grad():
             y, h = fhs[residual](thetas)
             tm, ts = cfg.theta_map.theta_mean, cfg.theta_map.theta_std
@@ -332,8 +363,8 @@ def scaled_path(dev, card):
             res = (b - element_affine_matvec(ke, model.lm, torch.stack([c0, c1], -1), u,
                                              model.ndof)) * model.free_mask
             rel_res = float((res.norm(dim=-1) / b.norm(dim=-1)).max())
-        errs = (rel_err(y, torch.as_tensor(gold["y"], device=dev)),
-                rel_err(h, torch.as_tensor(gold["h"], device=dev)))
+        errs = (rel_err(y, torch.as_tensor(gold["y"], dtype=torch.float64, device=dev)),
+                rel_err(h, torch.as_tensor(gold["h"], dtype=torch.float64, device=dev)))
         iters = [it.tolist() for it in solve.solver.last_cg_iters]
         if not max(errs) <= tol:
             fail(f"two-level {residual} vs JAX golden: rel err (y, h) {errs} > {tol}")
@@ -422,6 +453,233 @@ def scaled_path(dev, card):
               f"{256 / dt:.1f} solves/s ({dt * 1e3:.1f} ms a batch); CG iterations per solve "
               f"(first CG, refinement CG) mean {its.mean(1).tolist()}, max "
               f"{its.max(1).values.tolist()}, on {card}", flush=True)
+    return out
+
+
+def box3d_path(dev, card):
+    """Phases 13-17: the 3-D hex8 box (the 32x8x8 trainer and the 64x16x16
+    solve)."""
+    import dataclasses
+
+    from vbicm_tpu_torch.config import ProblemConfig, SectionCard, TrainConfig
+    from vbicm_tpu_torch.mesh import beam_hex8_mesh
+    from vbicm_tpu_torch.model import build_fem_model
+    from vbicm_tpu_torch.ops.assembly import element_affine_matvec
+    from vbicm_tpu_torch.ops.element import lame_from_Ev
+    from vbicm_tpu_torch.ops.spectral_kernel import (
+        spectral_apply_batched,
+        spectral_apply_reference,
+    )
+    from vbicm_tpu_torch.ops.stencil3d import StencilOperator3d
+    from vbicm_tpu_torch.ops.stencil3d_kernel import (
+        stencil3d_affine_matvec,
+        stencil3d_affine_reference,
+    )
+    from vbicm_tpu_torch.prob.datagen import generate_data_fem
+    from vbicm_tpu_torch.solver import make_fh_fun, make_solver, make_two_level_solver_box3d
+    from vbicm_tpu_torch.vi.train import TwoStepTrainer
+
+    sec = SectionCard(stype=4)
+    out = {}
+
+    # 13. the 3-D stencil kernel against its plain version, ragged tiles
+    worst, ops, cases = {}, {}, {}
+    saved = stencil3d_affine_matvec.launches
+    for cells in BOX_GRIDS:
+        m = build_fem_model(beam_hex8_mesh(*cells), sec, device=dev, dense=False)
+        ops[cells] = op = StencilOperator3d(m, *cells)
+        W = {dt: op.W.to(dev, dt) for dt in (torch.float32, torch.float64)}  # the plain operand
+        for B in STENCIL_BATCHES:
+            rng = np.random.default_rng(B + cells[0])
+            u64 = torch.as_tensor(rng.normal(size=(B, m.ndof)), device=dev)
+            c64 = torch.as_tensor(rng.uniform(1.0, 3.0, (B, 2)), device=dev)
+            for dtype in (torch.float32, torch.float64):
+                u, c = u64.to(dtype), c64.to(dtype)
+                q = op.affine(c, u)
+                qr = stencil3d_affine_reference(W[dtype], c, u)
+                torch.cuda.synchronize()
+                err = rel_err(q, qr)
+                if not err <= REL_TOL[dtype]:
+                    fail(f"3-D stencil kernel vs plain at {cells} B={B} {dtype}: rel err {err}")
+                worst[dtype] = max(worst.get(dtype, 0.0), err)
+                if dtype == torch.float32 and (cells, B) == BOX_MAIN:
+                    out["stencil3d_abs_err"] = float((q - qr).abs().max())
+            if B == 256:
+                cases[cells] = (c64, u64)
+        del W
+    stencil3d_affine_matvec.launches = saved
+    print(f"[13 stencil3d] ok: max rel err vs plain (of max|q|) f32 {worst[torch.float32]:.3e} "
+          f"(tol 2e-5), f64 {worst[torch.float64]:.3e} (tol 1e-12) over grids {BOX_GRIDS} "
+          f"x B in {STENCIL_BATCHES}", flush=True)
+
+    # 14. the box two-level solve against the JAX package's f64 golden. Two
+    #     refinements are held to 1e-6 for "train" as for "bench". The
+    #     trainer's own solver (one refinement, the fh phase 16 trains
+    #     through) leaves ~tol^2 = 9e-6 and is held to 1e-4; the solve
+    #     without refinement, which that bound must tell apart from it, is
+    #     recorded.
+    with open(os.path.join(ROOT, "tests", "fixtures", "scaled_3d_golden.json")) as f:
+        gold = json.load(f)
+    thetas = torch.as_tensor(gold["thetas"], dtype=torch.float64, device=dev)
+    fhs = {}
+    bounds = {1: 1e-4, 2: 1e-6}  # by refinements; the solve without one is recorded
+    for name, refines, maxiter in (("train", (0, 1, 2), 400), ("bench", (2,), 1500)):
+        g = gold[name]["mesh"]
+        nx, ny, nz, r = g["nx"], g["ny"], g["nz"], g["ratio"]
+        mesh_kw = {"lx": g["lx"], "tip_force": tuple(g["tip_force"])}
+        model = build_fem_model(beam_hex8_mesh(nx, ny, nz, **mesh_kw), sec, device=dev,
+                                dense=False)
+        cells_c = (nx // r, ny // r, nz // r)
+        coarse = build_fem_model(beam_hex8_mesh(*cells_c, **mesh_kw), sec, device=dev,
+                                 dense=True)
+        # the 3-D trainer's probes (examples/train_scaled_3d_torch.py)
+        probe = gold[name]["probe"]
+        cfg = dataclasses.replace(ProblemConfig(), y_dim=3, node_id=probe["node_id"],
+                                  ele_id=probe["ele_id"], nipt_id=tuple(probe["nipt_id"]))
+        y_gold, h_gold = (torch.as_tensor(gold[name][k], dtype=torch.float64, device=dev)
+                          for k in ("y", "h"))
+        for refine in refines:
+            solve = make_two_level_solver_box3d(model, coarse, cells_c, r,
+                                                cg_dtype=torch.float32, refine_iters=refine,
+                                                tol=3e-3, maxiter=maxiter)
+            fh = make_fh_fun(model, cfg, solve_free=solve)
+            fhs[name, refine] = {"cfg": cfg, "fh": fh, "solve": solve}
+            with torch.no_grad():
+                y, h = fh(thetas)
+                iters = [it.tolist() for it in solve.solver.last_cg_iters]
+                tm, ts = cfg.theta_map.theta_mean, cfg.theta_map.theta_std
+                c0, c1 = lame_from_Ev(torch.exp(ts[0] * thetas[:, 0] + tm[0]),
+                                      0.5 * torch.sigmoid(ts[1] * thetas[:, 1] + tm[1]))
+                u = solve(c0, c1)
+                ke = torch.stack([model.ke_lam, model.ke_mu])
+                b = (model.f_ext * model.free_mask).expand(u.shape[0], -1)
+                res = (b - element_affine_matvec(ke, model.lm, torch.stack([c0, c1], -1), u,
+                                                 model.ndof)) * model.free_mask
+                rel_res = float((res.norm(dim=-1) / b.norm(dim=-1)).max())
+            errs = (rel_err(y, y_gold), rel_err(h, h_gold))
+            bound = bounds.get(refine)
+            if bound is not None and not max(errs) <= bound:
+                fail(f"box two-level {name} ({nx}x{ny}x{nz}) vs JAX golden: rel err (y, h) "
+                     f"{errs} > {bound:g} with {refine} refinement(s); CG iterations {iters}; "
+                     f"max relative residual {rel_res:.3e}")
+            print(f"[14 box3d] {'record' if bound is None else 'ok'}: {name} {nx}x{ny}x{nz} "
+                  f"({model.ndof} dofs) f32 CG (tol 3e-3) + {refine} f64 refinement(s) vs JAX "
+                  f"f64 golden, rel err y {errs[0]:.3e}, h {errs[1]:.3e}"
+                  f"{'' if bound is None else f' (tol {bound:g})'}; max relative residual "
+                  f"(element matvec, f64) {rel_res:.3e}; CG iterations per lane {iters}",
+                  flush=True)
+
+    # 15. adjoint at 8x4x4 (coarse 4x2x2, 675 dofs) against the dense solve,
+    #     with two refinements as phase 14's check (one leaves ~tol^2)
+    fine8 = build_fem_model(beam_hex8_mesh(8, 4, 4), sec, device=dev, dense=True)
+    coarse4 = build_fem_model(beam_hex8_mesh(4, 2, 2), sec, device=dev, dense=True)
+    rng = np.random.default_rng(3)
+    lam = torch.as_tensor(rng.uniform(8.0, 16.0, 64), device=dev)
+    mu = torch.as_tensor(rng.uniform(6.0, 9.0, 64), device=dev)
+    wv = torch.as_tensor(rng.normal(size=(64, fine8.ndof)), device=dev) * fine8.free_mask
+    vals, grads = [], []
+    for solve in (make_two_level_solver_box3d(fine8, coarse4, (4, 2, 2), 2,
+                                              cg_dtype=torch.float32, refine_iters=2, tol=3e-3,
+                                              maxiter=400),
+                  make_solver(fine8)):
+        a, m = lam.clone().requires_grad_(True), mu.clone().requires_grad_(True)
+        J = (solve(a, m) * wv).sum(-1)
+        vals.append(J.detach())
+        grads.append(torch.stack(torch.autograd.grad(J.sum(), (a, m)), -1))
+    adj = (rel_err(vals[0], vals[1]), rel_err(grads[0], grads[1]))
+    if not (adj[0] <= 1e-7 and adj[1] <= 1e-6):
+        fail(f"box two-level adjoint vs dense at 8x4x4: rel err (value, grad) {adj} > "
+             "(1e-7, 1e-6)")
+    print(f"[15 box3d adjoint] ok: 8x4x4 box two-level (f32 CG + 2 f64 refinements) vs dense "
+          f"spectral f64, 64 probe functionals: value rel err {adj[0]:.3e} (tol 1e-7), "
+          f"d/d(lam, mu) {adj[1]:.3e} (tol 1e-6)", flush=True)
+
+    # 16. the 3-D main path: dataset generation and the two-step trainer at
+    #     32x8x8 through the box two-level observation operator
+    cfg, fh = fhs["train", 1]["cfg"], fhs["train", 1]["fh"]
+    tcfg = TrainConfig(batch_size=64, num_epoch1=2, num_epoch2=2, lr_decay_mode="fixed",
+                       pairing="per_sample")
+    spectral_apply_batched.launches = 0
+    stencil3d_affine_matvec.launches = 0
+    ds = generate_data_fem(torch.Generator().manual_seed(0), fh, n_sam=256, ne_sam=4, device=dev,
+                           d_y=3, sig_e=cfg.sig_e, sig_eta=cfg.sig_eta, chunk=512)
+    trainer = TwoStepTrainer(None, cfg, tcfg, fh_batch=fh, device=dev,
+                             y_norm=(ds.y_mean, ds.y_std), bridge_chunk=512)
+    res = trainer.fit(ds.y_data, ds.e_data, torch.Generator().manual_seed(1))
+    torch.cuda.synchronize()
+    out["spectral_launches"] = spectral_apply_batched.launches
+    out["stencil3d_launches"] = stencil3d_affine_matvec.launches
+    preds = trainer.predict(res.theta_net, res.z_net, ds.y_data[:8])
+    losses = np.concatenate([res.hist_step1, res.hist_step2])
+    if not np.all(np.isfinite(losses)):
+        fail(f"3-D trainer: non-finite losses: step1 {res.hist_step1}, step2 {res.hist_step2}")
+    if not all(p.shape == (8, 2) and bool(torch.isfinite(p).all()) for p in preds):
+        fail("3-D predict: outputs not finite (8, 2) tensors")
+    if out["spectral_launches"] <= 0 or out["stencil3d_launches"] <= 0:
+        fail(f"the 3-D trainer launched spectral {out['spectral_launches']}, stencil3d "
+             f"{out['stencil3d_launches']} times; both must be > 0")
+    print(f"[16 box3d trainer] ok: 32x8x8, n=256 x ne_sam 4, 2 + 2 epochs at batch 64, y_norm, "
+          f"per-sample pairing; step1 losses {res.hist_step1.tolist()}, step2 losses "
+          f"{res.hist_step2.tolist()}; kernel launches stencil3d {out['stencil3d_launches']}, "
+          f"spectral {out['spectral_launches']}", flush=True)
+
+    # 17. times (records, not a claim), each beside the card's name and limit
+    steps = math.ceil(ds.n_sam / tcfg.batch_size) * (tcfg.num_epoch1 - 1)
+    print(f"[17 times] 3-D step-1 train steps/s (32x8x8, B=64x4, f32 CG + 1 f64 refinement, "
+          f"epoch 2): {steps / sum(res.epoch_times_step1[1:]):.3f} on {card}", flush=True)
+    out["stencil3d_ms"] = {}
+    saved = stencil3d_affine_matvec.launches
+    for cells in ((32, 8, 8), (64, 16, 16)):
+        op = ops[cells]
+        c64, u64 = cases[cells]
+        for dtype in (torch.float32, torch.float64):
+            u, c, W = u64.to(dtype), c64.to(dtype), op.W.to(dev, dtype)
+            k_ms = time_ms(lambda: op.affine(c, u), warmup=10, reps=100)
+            p_ms = time_ms(lambda: stencil3d_affine_reference(W, c, u), warmup=3, reps=20)
+            out["stencil3d_ms"][cells, dtype] = (k_ms, p_ms)
+            nbytes = (2 * u.numel() + op.planes[dtype].numel() + c.numel()) * u.element_size()
+            print(f"[17 times] 3-D stencil matvec (B=256, {cells[0]}x{cells[1]}x{cells[2]}) "
+                  f"{dtype}: kernel {k_ms:.4f} ms ({nbytes / k_ms / 1e9:.3f} TB/s of u, q and "
+                  f"planes once), plain {p_ms:.4f} ms, on {card}", flush=True)
+    stencil3d_affine_matvec.launches = saved
+    saved = spectral_apply_batched.launches
+    for dtype in (torch.float32, torch.float64):
+        V, g, c, b = pencil_problem(*BOX_COARSE_SHAPE, seed=7, dtype=dtype, device=dev)
+        Vt = V.T.contiguous()
+        k_ms = time_ms(lambda: spectral_apply_batched(V, g, c, b, return_coords=True, Vt=Vt),
+                       warmup=5, reps=50)
+        p_ms = time_ms(lambda: spectral_apply_reference(V, g, c, b, return_coords=True),
+                       warmup=5, reps=50)
+        if dtype == torch.float32:
+            out["spectral_ms"] = (k_ms, p_ms)
+        print(f"[17 times] spectral apply (B, n)={BOX_COARSE_SHAPE} {dtype}: kernel "
+              f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, on {card}", flush=True)
+    spectral_apply_batched.launches = saved
+    refine = 2
+    fh, solve = fhs["bench", refine]["fh"], fhs["bench", refine]["solve"]
+    f64_ms = out["stencil3d_ms"][(64, 16, 16), torch.float64][0]
+    f32_ms = out["stencil3d_ms"][(64, 16, 16), torch.float32][0]
+    for B in BOX_FH_BATCHES:
+        th = torch.randn((B, 2), generator=torch.Generator().manual_seed(5),
+                         dtype=torch.float64).to(dev)
+        with torch.no_grad():
+            fh(th)
+            torch.cuda.synchronize()
+            tic = time.perf_counter()
+            for _ in range(3):
+                fh(th)
+            torch.cuda.synchronize()
+        dt = (time.perf_counter() - tic) / 3
+        its = torch.stack(solve.solver.last_cg_iters).double()
+        share = ""
+        if B == BOX_FH_BATCHES[-1]:
+            share = (f"; one f64 stencil launch {f64_ms:.4f} ms vs one f32 {f32_ms:.4f} ms, the "
+                     f"{refine} f64 residuals {100 * refine * f64_ms / (dt * 1e3):.3f} % of "
+                     "the solve")
+        print(f"[17 times] box two-level fh (64x16x16, B={B}, f32 CG + {refine} f64 "
+              f"refinements): {B / dt:.1f} solves/s ({dt * 1e3:.1f} ms a batch); CG iterations "
+              f"per solve (first CG, refinement CGs) mean {its.mean(1).tolist()}, max "
+              f"{its.max(1).values.tolist()}{share}, on {card}", flush=True)
     return out
 
 

@@ -22,7 +22,7 @@ from vbicm_tpu_torch.mesh import cooks_membrane_mesh
 from vbicm_tpu_torch.model import build_fem_model
 from vbicm_tpu_torch.ops.multigrid import (
     cooks_prolongation,
-    make_grid_transfer_conv,
+    make_grid_transfer_nd,
     make_two_level_preconditioner,
 )
 from vbicm_tpu_torch.solver import make_coarse_spectral_apply
@@ -55,7 +55,7 @@ def test_transfers_match_jax_conv_and_reshape_forms(nxc, nyc, r):
     nf = 2 * (nxc * r + 1) * (nyc * r + 1)
     rng = np.random.default_rng(nxc * 10 + r)
     uc, rf = rng.normal(size=(3, nc)), rng.normal(size=(3, nf))
-    prolong, restrict = make_grid_transfer_conv(nxc, nyc, r)
+    prolong, restrict = make_grid_transfer_nd((nyc, nxc), r, 2)
     p = prolong(torch.as_tensor(uc)).numpy()
     rs = restrict(torch.as_tensor(rf)).numpy()
     for jprolong, jrestrict in (jax_make_grid_transfer_conv(nxc, nyc, r),
@@ -74,7 +74,7 @@ def test_transfers_are_adjoint(nxc, nyc, r, dtype, tol):
     rng = np.random.default_rng(r)
     uc = torch.as_tensor(rng.normal(size=(2, nc)), dtype=dtype)
     vf = torch.as_tensor(rng.normal(size=(2, nf)), dtype=dtype)
-    prolong, restrict = make_grid_transfer_conv(nxc, nyc, r)
+    prolong, restrict = make_grid_transfer_nd((nyc, nxc), r, 2)
     lhs = (prolong(uc) * vf).sum(-1)
     rhs = (uc * restrict(vf)).sum(-1)
     # <P u, v> = <u, P^T v> up to the rounding of the two sums (tol x scale)
@@ -120,7 +120,7 @@ def test_preconditioner_matches_jax(two_level_16x8):
         grid_transfer=jax_make_grid_transfer_conv(4, 2, 4))
     want = np.asarray(jax.vmap(jprec)(jnp.asarray(coeffs), jnp.asarray(dinv), jnp.asarray(r)))
     prec = make_two_level_preconditioner(make_coarse_spectral_apply(coarse), fine.free_mask,
-                                         make_grid_transfer_conv(4, 2, 4), omega=0.6)
+                                         make_grid_transfer_nd((2, 4), 4, 2), omega=0.6)
     got = prec(*(torch.as_tensor(a) for a in (coeffs, dinv, r))).numpy()
     # 1e-12 relative: float64 on both sides
     assert _rel(got, want) < 1e-12

@@ -1,7 +1,8 @@
-"""The port's slice as a whole on the CPU: dataset generation and the
-two-step trainer on Cook's membrane 20x10, and the rule that the port
-imports nothing of JAX."""
+"""The port's slices as a whole on the CPU: dataset generation and the
+two-step trainer on Cook's membrane 20x10 and on a small 3-D hex8 box, and
+the rule that the port imports nothing of JAX."""
 import ast
+import dataclasses
 import importlib.util
 import os
 import pkgutil
@@ -14,12 +15,13 @@ import torch
 from threadpoolctl import threadpool_limits
 
 import vbicm_tpu_torch
-from vbicm_tpu_torch.config import ProblemConfig, TrainConfig
-from vbicm_tpu_torch.mesh import cooks_membrane_mesh
+from vbicm_tpu_torch.config import ProblemConfig, SectionCard, TrainConfig
+from vbicm_tpu_torch.mesh import beam_hex8_mesh, cooks_membrane_mesh
 from vbicm_tpu_torch.model import build_fem_model
 from vbicm_tpu_torch.ops.spectral_kernel import spectral_apply_batched
+from vbicm_tpu_torch.ops.stencil3d_kernel import stencil3d_affine_matvec
 from vbicm_tpu_torch.prob.datagen import generate_data_fem
-from vbicm_tpu_torch.solver import make_fh_fun
+from vbicm_tpu_torch.solver import make_fh_fun, make_two_level_solver_box3d
 from vbicm_tpu_torch.vi.train import TwoStepTrainer
 
 
@@ -54,6 +56,36 @@ def test_fit_cooks_two_step_on_cpu():
     assert spectral_apply_batched.launches == 0  # CPU tensors take the plain version
 
 
+def test_fit_box3d_two_step_on_cpu():
+    """The 3-D path end to end at 4x2x2 (coarse 2x1x1): dataset generation
+    and the trainer through the box two-level observation operator, with
+    input standardization and per-sample pairing."""
+    sec = SectionCard(stype=4)
+    tip = (0.0, 0.0, -1.0)  # root stresses well above the noise at this coarse grid
+    model = build_fem_model(beam_hex8_mesh(4, 2, 2, tip_force=tip), sec, device="cpu",
+                            dense=False)
+    coarse = build_fem_model(beam_hex8_mesh(2, 1, 1, tip_force=tip), sec, device="cpu")
+    solve = make_two_level_solver_box3d(model, coarse, (2, 1, 1), 2, cg_dtype=torch.float32,
+                                        refine_iters=1, tol=3e-3, maxiter=400)
+    cfg = dataclasses.replace(ProblemConfig(), y_dim=3, node_id=model.nnodes, ele_id=14,
+                              nipt_id=(1, 5))
+    fh = make_fh_fun(model, cfg, solve_free=solve)
+    ds = generate_data_fem(torch.Generator().manual_seed(0), fh, n_sam=32, ne_sam=4,
+                           device="cpu", d_y=3, sig_e=cfg.sig_e, sig_eta=cfg.sig_eta)
+    assert ds.y_data.shape == (32, 3) and np.all(np.isfinite(ds.log_z_data))
+    tcfg = TrainConfig(batch_size=16, num_epoch1=2, num_epoch2=2, lr_decay_mode="fixed",
+                       pairing="per_sample")
+    trainer = TwoStepTrainer(None, cfg, tcfg, fh_batch=fh, device="cpu",
+                             y_norm=(ds.y_mean, ds.y_std), bridge_chunk=48)
+    res = trainer.fit(ds.y_data, ds.e_data, torch.Generator().manual_seed(1))
+    assert np.all(np.isfinite(res.hist_step1)) and np.all(np.isfinite(res.hist_step2))
+    assert res.logz_mean_post.shape == (32, 2)
+    np.testing.assert_allclose(res.theta_net.y_shift.numpy(), ds.y_mean.ravel())
+    preds = trainer.predict(res.theta_net, res.z_net, ds.y_data[:8])
+    assert all(p.shape == (8, 2) and bool(torch.isfinite(p).all()) for p in preds)
+    assert stencil3d_affine_matvec.launches == 0  # CPU tensors take the plain version
+
+
 @pytest.mark.parametrize("field,value", [("posterior", "fullcov"), ("ckpt_every", 1),
                                          ("resample_e", True)])
 def test_trainer_rejects_unported_options(field, value):
@@ -79,7 +111,9 @@ def test_port_imports_no_jax_in_a_fresh_process():
 def test_port_sources_import_no_jax():
     files = [os.path.join(ROOT, "chip_smoke.py"),
              os.path.join(ROOT, "examples", "train_vi_torch.py"),
-             os.path.join(ROOT, "examples", "train_scaled_fullorder_torch.py")]
+             os.path.join(ROOT, "examples", "train_scaled_fullorder_torch.py"),
+             os.path.join(ROOT, "examples", "train_scaled_3d_torch.py"),
+             os.path.join(ROOT, "tools", "profile_scaled_torch.py")]
     for m in pkgutil.walk_packages(vbicm_tpu_torch.__path__, "vbicm_tpu_torch."):
         files.append(importlib.util.find_spec(m.name).origin)
     for path in files:
@@ -107,6 +141,16 @@ def test_scaled_example_refuses_to_run_without_a_gpu():
     proc = subprocess.run([sys.executable,
                            os.path.join(ROOT, "examples", "train_scaled_fullorder_torch.py"),
                            "--nx", "8", "--ny", "4", "--n-data", "8"],
+                          cwd=ROOT, capture_output=True, text=True, timeout=120,
+                          env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    assert proc.returncode != 0
+    assert "no GPU" in proc.stderr
+
+
+def test_scaled_3d_example_refuses_to_run_without_a_gpu():
+    proc = subprocess.run([sys.executable,
+                           os.path.join(ROOT, "examples", "train_scaled_3d_torch.py"),
+                           "--nx", "4", "--ny", "2", "--nz", "2", "--n-data", "8"],
                           cwd=ROOT, capture_output=True, text=True, timeout=120,
                           env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
     assert proc.returncode != 0

@@ -33,7 +33,7 @@ from vbicm_tpu_torch.mesh import cooks_membrane_mesh
 from vbicm_tpu_torch.model import build_fem_model
 from vbicm_tpu_torch.models.mlp import ThetaPosteriorNet, load_flax_params
 from vbicm_tpu_torch.ops.assembly import element_affine_matvec
-from vbicm_tpu_torch.ops.multigrid import make_grid_transfer_conv, make_two_level_preconditioner
+from vbicm_tpu_torch.ops.multigrid import make_grid_transfer_nd, make_two_level_preconditioner
 from vbicm_tpu_torch.ops.solve import make_matfree_affine_solver, pcg
 from vbicm_tpu_torch.solver import make_coarse_spectral_apply, make_fh_fun, make_two_level_solver
 from vbicm_tpu_torch.vi.train import TwoStepTrainer
@@ -104,7 +104,7 @@ def test_pcg_matches_vmapped_jax_pcg(models, maxiter):
     ke_t, mask_t = torch.as_tensor(ke), fine.free_mask
     c_t, minv_t = torch.as_tensor(coeffs), torch.as_tensor(dinv)
     prec = make_two_level_preconditioner(make_coarse_spectral_apply(coarse), fine.free_mask,
-                                         make_grid_transfer_conv(NX // R, NY // R, R), omega=0.6)
+                                         make_grid_transfer_nd((NY // R, NX // R), R, 2), omega=0.6)
 
     def mv(x):
         return element_affine_matvec(ke_t, fine.lm, c_t, x * mask_t, n) * mask_t + x * (1 - mask_t)

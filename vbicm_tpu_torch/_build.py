@@ -1,7 +1,7 @@
 """Build and load the package's CUDA kernels.
 
-The sources under ``csrc/`` (the spectral apply and the stencil matvec) have
-a plain C interface. At first use each is compiled with ``nvcc`` for
+The sources under ``csrc/`` (the spectral apply and the 2-D and 3-D stencil
+matvecs) have a plain C interface. At first use each is compiled with ``nvcc`` for
 ``sm_90a``, all at once in parallel processes, and the objects are linked
 into one shared library under ``build/vbicm_tpu_torch/`` at the root of the
 checkout, loaded with ``ctypes``. The library's file name carries a hash of
@@ -35,6 +35,9 @@ _SIGNATURES = {
     # (w, coeffs, u, q, B, NY, NX2, TS, threads, stream) -> cudaError_t
     "vbicm_stencil_affine_f32": [_PTR] * 4 + [_INT] * 5 + [_PTR],
     "vbicm_stencil_affine_f64": [_PTR] * 4 + [_INT] * 5 + [_PTR],
+    # (w, coeffs, u, q, B, NZ, NY, NX3, stream) -> cudaError_t
+    "vbicm_stencil3d_affine_f32": [_PTR] * 4 + [_INT] * 4 + [_PTR],
+    "vbicm_stencil3d_affine_f64": [_PTR] * 4 + [_INT] * 4 + [_PTR],
 }
 
 

@@ -33,8 +33,9 @@ class MaterialCard:
 
 @dataclasses.dataclass(frozen=True)
 class SectionCard:
-    """2-D section. stype: 1 = plane stress, 2 = plane strain, 3 =
-    axisymmetric, 4 = axisymmetric + torsion. etype: 1 = quadrilateral."""
+    """Element section. stype: 1 = plane stress, 2 = plane strain, 3 =
+    axisymmetric, 4 = the 3-D solid (hex8 meshes; ``thk`` unused). etype:
+    1 = quadrilateral (2-D). This package builds stype 2 (quad4) and 4."""
 
     intp: int = 2  # Gauss order per direction (2 -> 2x2 rule)
     thk: float = 10.0

@@ -5,7 +5,9 @@ the posterior pair q(theta|y) -> (theta_mean, theta_sig, log_theta_sig) and
 the lognormal predictive pair p(z|y) -> (z_mean, z_sig, log_z_sig); the
 ``*_sig`` outputs are variances, exp of the log head. Initialization is
 Keras's Dense default (glorot-uniform weights, zero biases), drawn from an
-explicit ``torch.Generator``.
+explicit ``torch.Generator``. ``y_shift``/``y_scale`` bake a frozen input
+standardization ``(y - shift) / scale`` into a pair net as constants (buffers,
+not parameters); ``None`` leaves the input as it is.
 """
 from __future__ import annotations
 
@@ -51,16 +53,21 @@ class _PairNet(nn.Module):
 
     _names: tuple = ()
 
-    def __init__(self, y_dim, hidden, n_layers, out_dim, *, dtype, device):
+    def __init__(self, y_dim, hidden, n_layers, out_dim, *, dtype, device, y_shift, y_scale):
         super().__init__()
         for name in self._names:
             self.add_module(name, MLP(y_dim, hidden, n_layers, out_dim, dtype=dtype, device=device))
+        for name, v in (("y_shift", y_shift), ("y_scale", y_scale)):
+            v = None if v is None else torch.tensor(v, dtype=dtype, device=device)
+            self.register_buffer(name, v)
 
     def reset_parameters(self, generator: torch.Generator):
         for name in self._names:
             getattr(self, name).reset_parameters(generator)
 
     def forward(self, y):
+        if self.y_shift is not None:
+            y = (y - self.y_shift) / self.y_scale
         mean_net, sig_net = (getattr(self, name) for name in self._names)
         log_sig = sig_net(y)
         return mean_net(y), torch.exp(log_sig), log_sig
@@ -72,8 +79,9 @@ class ThetaPosteriorNet(_PairNet):
     _names = ("theta_mean_net", "theta_sig_net")
 
     def __init__(self, y_dim: int = 2, hidden: int = 20, n_layers: int = 3, theta_dim: int = 2,
-                 *, dtype=torch.float64, device=None):
-        super().__init__(y_dim, hidden, n_layers, theta_dim, dtype=dtype, device=device)
+                 *, dtype=torch.float64, device=None, y_shift=None, y_scale=None):
+        super().__init__(y_dim, hidden, n_layers, theta_dim, dtype=dtype, device=device,
+                         y_shift=y_shift, y_scale=y_scale)
 
 
 class ZPredictiveNet(_PairNet):
@@ -82,8 +90,9 @@ class ZPredictiveNet(_PairNet):
     _names = ("z_mean_net", "z_sig_net")
 
     def __init__(self, y_dim: int = 2, hidden: int = 20, n_layers: int = 3, z_dim: int = 2,
-                 *, dtype=torch.float64, device=None):
-        super().__init__(y_dim, hidden, n_layers, z_dim, dtype=dtype, device=device)
+                 *, dtype=torch.float64, device=None, y_shift=None, y_scale=None):
+        super().__init__(y_dim, hidden, n_layers, z_dim, dtype=dtype, device=device,
+                         y_shift=y_shift, y_scale=y_scale)
 
 
 def init_vi_networks(generator: torch.Generator, y_dim=2, theta_dim=2, z_dim=2, hidden=20,

@@ -1,14 +1,15 @@
-"""Two-level (coarse grid + Jacobi) preconditioning for refined Cook's meshes
-(counterpart of ``vbicm_tpu/ops/multigrid.py``, the additive cycle with
-conv-form transfers).
+"""Two-level (coarse grid + Jacobi) preconditioning for refined structured
+meshes, Cook's quad4 and the hex8 box (counterpart of
+``vbicm_tpu/ops/multigrid.py``, the additive cycle with tensor-product
+transfers).
 
     M^-1 r = P K_c(lam, mu)^-1 P^T r + omega * D^-1 r
 
-P is the bilinear index-space prolongation from the coarse (nx_c, ny_c) grid
-to the fine (ratio*nx_c, ratio*ny_c) grid, exact for the Cook's geometry,
-which is bilinear in the index map; K_c^-1 is the coarse model's exact
-spectral solve for any (lam, mu); D is the fine Jacobi diagonal. Vectors are
-batched, (B, ndof), dofs interleaved per node.
+P is the multilinear index-space prolongation from the coarse grid to the
+fine grid refined ``ratio`` times per axis, exact for the Cook's geometry,
+which is bilinear in the index map, and for the axis-aligned box; K_c^-1 is
+the coarse model's exact spectral solve for any (lam, mu); D is the fine
+Jacobi diagonal. Vectors are batched, (B, ndof), dofs interleaved per node.
 """
 from __future__ import annotations
 
@@ -53,38 +54,49 @@ def hat_matrix(n_fine: int, n_coarse: int, r: int) -> np.ndarray:
     return np.maximum(0.0, 1.0 - np.abs(f - r * c) / r)
 
 
-def make_grid_transfer_conv(nx_c: int, ny_c: int, ratio: int, *, device="cpu"):
-    """``(prolong, restrict)`` on batched flat dof vectors: the JAX
-    package's conv-form transfers (a depthwise hat-kernel convolution with
-    ``lhs_dilation=ratio`` per axis, and the same kernel at stride ``ratio``
-    for the restriction). Here each axis is one product with its 1-D hat
-    matrix: the convolution's edge clipping is the matrix's clipped rows,
-    and the restriction applies the transposed matrices, so the pair is
-    exactly adjoint. Both follow their input's dtype (float32 or float64).
+def make_grid_transfer_nd(cells_coarse, ratio: int, ndof_node: int, *, device="cpu"):
+    """``(prolong, restrict)`` on batched flat dof vectors of a structured
+    grid: the JAX package's N-dimensional tensor-product transfers.
 
-    prolong: (B, 2*(ny_c+1)*(nx_c+1)) -> (B, 2*(ny_c*r+1)*(nx_c*r+1));
+    ``cells_coarse`` holds the coarse cell counts per axis, slowest-varying
+    first (``(nz, ny, nx)`` for the hex8 box numbering of
+    ``mesh/solid3d.py``), with the ``ndof_node`` dof channel fastest. The
+    prolongation applies each axis's 1-D hat matrix (:func:`hat_matrix`) in
+    turn, as one batched matrix product; the restriction applies the
+    transposed matrices in the reverse order, so the pair is exactly
+    adjoint. Both follow their input's dtype (float32 or float64). On the
+    Cook's grid, ``(ny_c, nx_c)`` with 2 dofs a node, they equal the JAX
+    package's conv-form transfers (a depthwise hat-kernel convolution with
+    ``lhs_dilation=ratio``, and the same kernel at stride ``ratio`` for the
+    restriction): the convolution's edge clipping is the hat matrices'
+    clipped rows.
+
+    prolong: (B, ndof_node * prod(c + 1)) -> (B, ndof_node * prod(c*r + 1));
     restrict: the reverse."""
-    r = ratio
-    NXc, NYc = nx_c + 1, ny_c + 1
-    NXf, NYf = nx_c * r + 1, ny_c * r + 1
+    nc = [c + 1 for c in cells_coarse]
+    nf = [c * ratio + 1 for c in cells_coarse]
     mats = {}
     for dt in (torch.float32, torch.float64):
-        py = torch.as_tensor(hat_matrix(NYf, NYc, r), dtype=dt, device=device)
-        px = torch.as_tensor(hat_matrix(NXf, NXc, r), dtype=dt, device=device)
-        mats[dt] = (py, px, py.T.contiguous(), px.T.contiguous())
+        ps = [torch.as_tensor(hat_matrix(f, c, ratio), dtype=dt, device=device)
+              for f, c in zip(nf, nc)]
+        mats[dt] = (ps, [p.T.contiguous() for p in ps])
 
     def prolong(u_c):
-        py, px, _, _ = mats[u_c.dtype]
+        ps, _ = mats[u_c.dtype]
         B = u_c.shape[0]
-        t = torch.matmul(py, u_c.reshape(B, NYc, NXc * 2))  # (B, NYf, NXc*2)
-        t = torch.matmul(px, t.reshape(B * NYf, NXc, 2))  # (B*NYf, NXf, 2)
+        t = u_c
+        for k, p in enumerate(ps):
+            # axes before k are fine already, axes after k still coarse
+            t = torch.matmul(p, t.reshape(B * int(np.prod(nf[:k])), nc[k], -1))
         return t.reshape(B, -1)
 
     def restrict(r_f):
-        _, _, pyt, pxt = mats[r_f.dtype]
+        _, pts = mats[r_f.dtype]
         B = r_f.shape[0]
-        t = torch.matmul(pxt, r_f.reshape(B * NYf, NXf, 2))  # (B*NYf, NXc, 2)
-        t = torch.matmul(pyt, t.reshape(B, NYf, NXc * 2))  # (B, NYc, NXc*2)
+        t = r_f
+        for k in reversed(range(len(pts))):
+            # axes before k are fine still, axes after k coarse already
+            t = torch.matmul(pts[k], t.reshape(B * int(np.prod(nf[:k])), nf[k], -1))
         return t.reshape(B, -1)
 
     return prolong, restrict
@@ -103,7 +115,7 @@ def make_two_level_preconditioner(
     ``coarse_apply(coeffs, r_c) -> K_c^-1 r_c`` solves on the coarse
     full-dof vector (fixed dofs zero), e.g. ``solver.
     make_coarse_spectral_apply``; ``grid_transfer`` is the ``(prolong,
-    restrict)`` pair of :func:`make_grid_transfer_conv`; diag_inv is the fine
+    restrict)`` pair of :func:`make_grid_transfer_nd`; diag_inv is the fine
     Jacobi inverse diagonal for the current coefficients. The JAX package's
     gather/segment-sum transfers (``grid_transfer=None``) are not ported."""
     prolong, restrict = grid_transfer

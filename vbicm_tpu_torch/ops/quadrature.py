@@ -59,6 +59,36 @@ def int2d(order: int):
     raise ValueError(f"illegal 2-D quadrature order {order}")
 
 
+def int3d(order: int):
+    """3-D quadrature for hexes; returns (points (lint,3), weights (lint,)).
+
+    Orders 1..5 are tensor Gauss rules (x fastest, ascending). The negative
+    orders are the reference's special rules: ``-9``, 8 points at
+    (+-g, +-g, +-g), g = sqrt(0.6), weight 5/9 each, plus the centroid at
+    weight 30/29; ``-4``, the 4-point degree-2 rule on alternating corners
+    scaled by 1/sqrt(3), weight 2 each.
+    """
+    if order == -9:
+        g = _SQTP6
+        corners = np.stack([g * _LR[:4], g * _LZ[:4], np.full(4, g)], axis=1)
+        P = np.concatenate([corners, corners * np.array([1.0, 1.0, -1.0]), np.zeros((1, 3))],
+                           axis=0)
+        W = np.concatenate([np.full(8, _FIVE9), [30.0 / 29.0]])
+        return P, W
+    if order == -4:
+        g = _SQT13
+        P = g * np.array([[-1, -1, -1], [1, 1, -1], [1, -1, 1], [-1, 1, 1]], dtype=np.float64)
+        return P, np.full(4, 2.0)
+    if not 1 <= order <= 5:
+        raise ValueError(f"illegal 3-D quadrature order {order}")
+    p1, w1 = gauss1d(order)
+    P = np.array([[p1[k], p1[j], p1[i]]
+                  for i in range(order) for j in range(order) for k in range(order)])
+    W = np.array([w1[i] * w1[j] * w1[k]
+                  for i in range(order) for j in range(order) for k in range(order)])
+    return P, W
+
+
 def quadr2d(intp: int, nel: int):
     """Rule dispatch mirroring the reference's ``quadr2d``."""
     order = min(5, intp)

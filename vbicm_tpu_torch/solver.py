@@ -18,11 +18,12 @@ import torch
 
 from .config import MaterialCard, ProblemConfig
 from .model import FemModel
-from .ops.element import material_coeffs, stress6_plane_strain
-from .ops.multigrid import make_grid_transfer_conv, make_two_level_preconditioner
+from .ops.element import material_coeffs, stress6_3d, stress6_plane_strain
+from .ops.multigrid import make_grid_transfer_nd, make_two_level_preconditioner
 from .ops.solve import make_matfree_affine_solver, make_spectral_affine_solver
 from .ops.spectral_kernel import spectral_apply_batched
 from .ops.stencil import make_stencil_affine_matvec
+from .ops.stencil3d import make_stencil_affine_matvec_3d
 from .ops.vonmises import von_mises_reference
 
 
@@ -71,13 +72,23 @@ def _make_free_embed(model: FemModel):
     return embed
 
 
+def _stress6(model: FemModel, eps, c0, c1):
+    """The 6-stress of the model's section from its B-matrix strain: the
+    in-plane 3-strain in plane strain, the full 6-strain for the solid."""
+    if model.stype == 4:
+        return stress6_3d(eps, c0, c1)
+    return stress6_plane_strain(eps, c0, c1)
+
+
 def recover_fields(model: FemModel, u, c0, c1) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-(element, qpt) strain/stress 6-vectors from one displacement
     field u (ndof,); (c0, c1) = (lam, mu). Plane strain stores e33 = 0 but
-    s33 = lam*(e11+e22)."""
+    s33 = lam*(e11+e22); the solid's B already gives the 6-strain."""
     ue = u[model.lm]  # (nele, edof)
     eps3 = torch.einsum("eqai,ei->eqa", model.B, ue)
-    sig6 = stress6_plane_strain(eps3, c0, c1)
+    sig6 = _stress6(model, eps3, c0, c1)
+    if model.stype == 4:
+        return eps3, sig6
     zero = torch.zeros_like(eps3[..., 0])
     eps6 = torch.stack([eps3[..., 0], eps3[..., 1], zero, eps3[..., 2], zero, zero], dim=-1)
     return eps6, sig6
@@ -105,7 +116,7 @@ def probe_von_mises(model: FemModel, u, c0, c1, ele_id: int, nipt_id) -> torch.T
     one displacement field u (ndof,) and (c0, c1) = (lam, mu)."""
     q = torch.as_tensor(nipt_id, device=u.device) - 1
     eps3 = torch.einsum("qai,i->qa", model.B[ele_id - 1, q], u[model.lm[ele_id - 1]])
-    return von_mises_reference(stress6_plane_strain(eps3, c0, c1))
+    return von_mises_reference(_stress6(model, eps3, c0, c1))
 
 
 def make_fh_fun(
@@ -117,10 +128,10 @@ def make_fh_fun(
     solve_free: Optional[Callable] = None,
 ) -> Callable:
     """Build the batched observation operator
-    ``fh(thetas (B, 2)) -> (y (B, 2), h (B, 2))``.
+    ``fh(thetas (B, 2)) -> (y (B, ndm), h (B, nq))``.
 
     E = exp(std0 * t0 + mean0), nu = 0.5 * sigmoid(std1 * t1 + mean1);
-    y = (ux, uy) at ``cfg.node_id``; h = reference von Mises at
+    y = the ``model.ndm`` displacements at ``cfg.node_id``; h = reference von Mises at
     ``cfg.ele_id``, qpts ``cfg.nipt_id``. Differentiable in thetas.
     ``solve_free(c0 (B,), c1 (B,)) -> u (B, ndof)`` overrides the spectral
     solver (e.g. :func:`make_two_level_solver`).
@@ -137,7 +148,7 @@ def make_fh_fun(
         model.ndm * (cfg.node_id - 1) + np.arange(model.ndm), device=model.device
     )
     q = torch.as_tensor(cfg.nipt_id, device=model.device) - 1
-    B_probe = model.B[cfg.ele_id - 1, q]  # (nq, 3, 8)
+    B_probe = model.B[cfg.ele_id - 1, q]  # (nq, 3, 8) | (nq, 6, 24)
     lm_probe = model.lm[cfg.ele_id - 1]
 
     def fh(thetas):
@@ -148,7 +159,7 @@ def make_fh_fun(
         u = solve_free(c0, c1)  # (B, ndof)
         y = u[:, obs_dofs]
         eps3 = torch.einsum("qai,bi->bqa", B_probe, u[:, lm_probe])
-        sig6 = stress6_plane_strain(eps3, c0[:, None], c1[:, None])
+        sig6 = _stress6(model, eps3, c0[:, None], c1[:, None])
         return y, von_mises_reference(sig6)
 
     return fh
@@ -205,7 +216,7 @@ def make_two_level_solver(
     The fine grid is (nx_coarse*ratio, ny_coarse*ratio). The CG runs in
     structured-grid form: K(c) as the stencil kernel (``ops.stencil``), the
     transfers as the 1-D hat products of ``ops.multigrid.
-    make_grid_transfer_conv``, the coarse solve through the spectral kernel
+    make_grid_transfer_nd`` on the (ny, nx) grid, the coarse solve through the spectral kernel
     (:func:`make_coarse_spectral_apply`). ``cg_dtype``, ``refine_iters`` and
     ``refine_residual`` ("f64" or "split_f32") are those of
     ``ops.solve.make_matfree_affine_solver``.
@@ -218,18 +229,75 @@ def make_two_level_solver(
     if not use_stencil:
         raise NotImplementedError("use_stencil=False (the element-path two-level solver) is "
                                   "not ported; ROADMAP Queue 1 item 7")
-    if cycle != "additive":
-        raise NotImplementedError(f"cycle={cycle!r} is not ported (only 'additive'); "
-                                  "ROADMAP Queue 1 item 12")
     if transfer != "conv":
         raise NotImplementedError(f"transfer={transfer!r} is not ported (only 'conv'); "
+                                  "ROADMAP Queue 1 item 12")
+    _check_two_level_options(cycle, with_rhs_solver)
+    affine, _, diag_parts = make_stencil_affine_matvec(model, nx_coarse * ratio,
+                                                       ny_coarse * ratio)
+    transfer_ops = make_grid_transfer_nd((ny_coarse, nx_coarse), ratio, 2, device=model.device)
+    return _two_level_solve_free(model, coarse_model, affine, diag_parts, transfer_ops,
+                                 cg_dtype=cg_dtype, refine_iters=refine_iters, tol=tol,
+                                 maxiter=maxiter, omega=omega, refine_residual=refine_residual)
+
+
+def make_two_level_solver_box3d(
+    model: FemModel,
+    coarse_model: FemModel,
+    cells_coarse,
+    ratio: int,
+    *,
+    cg_dtype=None,
+    refine_iters: int = 0,
+    tol: float = 1e-10,
+    maxiter: int = 500,
+    omega: float = 0.6,
+    refine_residual: str = "f64",
+    cycle: str = "additive",
+    with_rhs_solver: bool = False,
+) -> Callable:
+    """Two-level (spectral-coarse + Jacobi) matrix-free solver for
+    structured hex8 box meshes (``mesh/solid3d.py`` numbering), the 3-D
+    sibling of :func:`make_two_level_solver`. Returns ``solve_free(c0 (B,),
+    c1 (B,)) -> u (B, ndof)`` with the adjoint backward pass;
+    ``solve_free.solver`` is the underlying ``ops.solve.
+    MatfreeAffineSolver``.
+
+    ``cells_coarse`` = coarse (nx, ny, nz) cell counts; the fine model must
+    be the same box at ``cells_coarse * ratio``. The CG runs K(c) as the
+    27-point stencil kernel (``ops.stencil3d``), the transfers as the
+    tensor-product hat products of ``ops.multigrid.make_grid_transfer_nd``
+    and the coarse solve through the spectral kernel. ``cg_dtype``,
+    ``refine_iters`` and ``refine_residual`` ("f64" or "split_f32") are
+    those of ``ops.solve.make_matfree_affine_solver``.
+
+    The JAX package's ``use_pallas`` and ``coarse_f32_precision`` are not
+    taken: on CUDA tensors the kernel always runs, and the float32 coarse
+    apply is full float32. ``cycle="vcycle"`` and ``with_rhs_solver`` raise.
+    """
+    _check_two_level_options(cycle, with_rhs_solver)
+    ncx, ncy, ncz = cells_coarse
+    affine, diag_parts = make_stencil_affine_matvec_3d(model, ncx * ratio, ncy * ratio,
+                                                       ncz * ratio)
+    transfer_ops = make_grid_transfer_nd((ncz, ncy, ncx), ratio, 3, device=model.device)
+    return _two_level_solve_free(model, coarse_model, affine, diag_parts, transfer_ops,
+                                 cg_dtype=cg_dtype, refine_iters=refine_iters, tol=tol,
+                                 maxiter=maxiter, omega=omega, refine_residual=refine_residual)
+
+
+def _check_two_level_options(cycle, with_rhs_solver):
+    if cycle != "additive":
+        raise NotImplementedError(f"cycle={cycle!r} is not ported (only 'additive'); "
                                   "ROADMAP Queue 1 item 12")
     if with_rhs_solver:
         raise NotImplementedError("with_rhs_solver (the modal solver's rhs solve) is not "
                                   "ported; ROADMAP Queue 1 item 9")
-    affine, _, diag_parts = make_stencil_affine_matvec(model, nx_coarse * ratio,
-                                                       ny_coarse * ratio)
-    transfer_ops = make_grid_transfer_conv(nx_coarse, ny_coarse, ratio, device=model.device)
+
+
+def _two_level_solve_free(model, coarse_model, affine, diag_parts, transfer_ops, *, cg_dtype,
+                          refine_iters, tol, maxiter, omega, refine_residual):
+    """The structured-grid two-level solve shared by the 2-D and 3-D
+    solvers: the additive preconditioner around the matrix-free CG."""
     prec = make_two_level_preconditioner(make_coarse_spectral_apply(coarse_model),
                                          model.free_mask, transfer_ops, omega=omega)
     base = make_matfree_affine_solver(

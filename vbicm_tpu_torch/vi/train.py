@@ -31,9 +31,6 @@ from ..models.mlp import ThetaPosteriorNet, ZPredictiveNet
 from ..solver import make_fh_fun
 from .elbo import make_loss_step1, make_loss_step2
 
-# The bridge sweeps n * ne posterior samples in batches of this size.
-_BRIDGE_CHUNK = 4096
-
 # TrainConfig fields this package does not implement yet, with the only
 # value it accepts.
 _NOT_PORTED = {
@@ -72,9 +69,16 @@ class TwoStepTrainer:
         dtype=torch.float64,
         verbose: bool = False,
         fh_batch: Optional[Callable] = None,
+        y_norm=None,
+        bridge_chunk: int = 4096,
     ):
         """``device`` defaults to the model's. ``fh_batch`` overrides the
-        batched observation operator ``thetas (B, 2) -> (y, h)``."""
+        batched observation operator ``thetas (B, 2) -> (y, h)``.
+
+        ``y_norm=(mean, std)`` bakes frozen input standardization into both
+        nets (``models.mlp``); ``None`` keeps the reference's raw inputs.
+        ``bridge_chunk`` bounds the batch of the bridge's FEM sweep over the
+        n * ne posterior samples."""
         for field, accepted in _NOT_PORTED.items():
             if getattr(tcfg, field) != accepted:
                 raise NotImplementedError(
@@ -92,6 +96,11 @@ class TwoStepTrainer:
         self.tcfg = tcfg
         self.dtype = dtype
         self.verbose = verbose
+        self.bridge_chunk = int(bridge_chunk)
+        self.y_shift = self.y_scale = None
+        if y_norm is not None:
+            self.y_shift = tuple(float(v) for v in np.asarray(y_norm[0]).ravel())
+            self.y_scale = tuple(float(v) for v in np.asarray(y_norm[1]).ravel())
         if fh_batch is None:
             fh_batch = make_fh_fun(model, cfg, factor_dtype=factor_dtype, refine_iters=refine_iters)
         self._batch_fh = fh_batch
@@ -99,13 +108,15 @@ class TwoStepTrainer:
     # ------------------------------------------------------------------
     def new_theta_net(self, generator: torch.Generator) -> ThetaPosteriorNet:
         net = ThetaPosteriorNet(self.cfg.y_dim, self.tcfg.num_neuron, self.tcfg.num_layers1,
-                                self.cfg.theta_dim, dtype=self.dtype, device=self.device)
+                                self.cfg.theta_dim, dtype=self.dtype, device=self.device,
+                                y_shift=self.y_shift, y_scale=self.y_scale)
         net.reset_parameters(generator)
         return net
 
     def new_z_net(self, generator: torch.Generator) -> ZPredictiveNet:
         net = ZPredictiveNet(self.cfg.y_dim, self.tcfg.num_neuron, self.tcfg.num_layers2,
-                             self.cfg.z_dim, dtype=self.dtype, device=self.device)
+                             self.cfg.z_dim, dtype=self.dtype, device=self.device,
+                             y_shift=self.y_shift, y_scale=self.y_scale)
         net.reset_parameters(generator)
         return net
 
@@ -179,7 +190,7 @@ class TwoStepTrainer:
     # ------------------------------------------------------------------
     def bridge(self, y_data, e_data, theta_net, generator):
         """Posterior-sample sweep -> cached log-z moments (mean, variance)."""
-        chunk = _BRIDGE_CHUNK
+        chunk = self.bridge_chunk
         y_data, e_data = self._tensor(y_data), self._tensor(e_data)
         n, ne = y_data.shape[0], e_data.shape[0]
         with torch.no_grad():
