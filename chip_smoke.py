@@ -1,7 +1,7 @@
 """On-card smoke test of the PyTorch port (``vbicm_tpu_torch``) on one GPU.
 
 Builds the CUDA kernels from the sources in this checkout and holds each
-against its plain PyTorch version. Then two paths, each driven through the
+against its plain PyTorch version. Then four paths, each driven through the
 entry points a user calls, with the kernels' launch counts set to 0 just
 before and read just after:
 
@@ -22,10 +22,19 @@ before and read just after:
   trainer's 32x8x8 cantilever and the 64x16x16 solve, its adjoint against
   the dense solve at 8x4x4, and dataset generation and the two-step trainer
   at 32x8x8 (8,019 dofs; float32 CG + one float64 refinement, input
-  standardization, per-sample pairing).
+  standardization, per-sample pairing);
+- the element path (phases 18-23): the element kernel on quad4, randomly
+  renumbered quad4 and hex8 meshes, Jacobi-PCG on matrix-free models
+  against the dense solve, the element-path two-level solve at 160x80
+  against the JAX golden and the stencil path, its adjoint at 40x20, and
+  the scaled reduced-basis trainer (examples/train_scaled_rom_torch.py:
+  the certified ROM inside the ELBO, the element-path two-level solver for
+  its full-order spot check).
 
 Prints one line per phase, the card's name and power limit, a JSON line with
-the kernels' records and, last, the ok line. Exits non-zero on any failure
+the kernels' records (each with its bound: the larger of the bytes it must
+move over 3.35 TB/s and its operations over 67 TFLOP/s in float32, the
+H100 SXM's data-sheet peaks) and, last, the ok line. Exits non-zero on any failure
 and when no GPU is present.
 
     python3 chip_smoke.py
@@ -43,17 +52,21 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
-# (B, n): the 20x10 solve (n = 440), the 160x80 path's coarse solve (n = 1680
-# free dofs of the 40x20 coarse mesh) and the 3-D path's (n = 1200 of the
+# (B, n): the 20x10 solve (n = 440), the 160x80 paths' coarse solve (n = 1680
+# free dofs of the 40x20 coarse mesh: B = 256 in the step, 8 in phase 20, 16
+# in the ROM example's spot check) and the 3-D path's (n = 1200 of the
 # 16x4x4 coarse box: B = 256 in the step, 512 in data generation and the
 # bridge)
 SHAPES = [(256, 440), (4096, 440), (5, 440), (130, 130), (20, 200), (256, 1680), (4096, 1680),
-          (256, 1200), (512, 1200)]
+          (8, 1680), (16, 1680), (256, 1200), (512, 1200)]
 MAIN_SHAPE = (256, 440)  # one step-1 batch: 64 observations x 4 samples, 440 free dofs
 COARSE_SHAPE = (256, 1680)
 REL_TOL = {torch.float64: 1e-12, torch.float32: 2e-5}
 STENCIL_GRIDS = [(8, 4), (32, 16), (160, 80)]
 STENCIL_BATCHES = [1, 5, 256, 300]
+# the element kernel's batches: ragged tiles, and the 160x80 element path's
+# own (8 in phase 20, 16 in the ROM example's spot check, 256 in phase 23)
+ELEMENT_BATCHES = [1, 5, 8, 16, 256, 300]
 STENCIL_MAIN = (160, 256)  # (nx, B) of the timed case: the step-1 batch at 160x80
 # 3-D hex8 box grids (nx, ny, nz) of the kernel check; the trainer's grid
 # (32x8x8) at B = 256 is the JSON line's case
@@ -61,6 +74,19 @@ BOX_GRIDS = [(4, 2, 2), (32, 8, 8), (64, 16, 16)]
 BOX_MAIN = ((32, 8, 8), 256)
 BOX_COARSE_SHAPE = (256, 1200)  # the 3-D coarse solve: 16x4x4, 1200 free dofs
 BOX_FH_BATCHES = (64, 256)  # the timed 64x16x16 solves (bench.py's B, and B = 256)
+# the element kernel's meshes: (name, mesh factory, 3-D) -- quad4 Cook's,
+# Cook's 20x10 with its nodes and elements renumbered from a seed (an
+# unstructured dof map), hex8 boxes
+ELEMENT_MESHES = [("8x4", lambda m: m.cooks_membrane_mesh(8, 4), False),
+                  ("32x16", lambda m: m.cooks_membrane_mesh(32, 16), False),
+                  ("160x80", lambda m: m.cooks_membrane_mesh(160, 80), False),
+                  ("20x10 renumbered",
+                   lambda m: m.renumber_mesh(m.cooks_membrane_mesh(20, 10), seed=3), False),
+                  ("4x2x2", lambda m: m.beam_hex8_mesh(4, 2, 2), True),
+                  ("32x8x8", lambda m: m.beam_hex8_mesh(32, 8, 8), True)]
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+# outside the tensor cores, H100 SXM data sheet
+PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 
 
 def fail(msg):
@@ -70,6 +96,49 @@ def fail(msg):
 
 def rel_err(got, want):
     return float((got - want).abs().max() / want.abs().max())
+
+
+def least_time(nbytes, flops, dtype=torch.float32):
+    """(bound_ms, bound_by): the least time for the work on an H100, the
+    larger of bytes over the HBM rate and operations over the peak rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def stencil_least_time(planes, c, u):
+    """least_time of a stencil matvec: u and q once, the coefficient planes'
+    nonzero entries once (the lane offsets that carry no coefficient, and the
+    Dirichlet rows' zeros, are no work of the function), an FMA per nonzero
+    coefficient per sample and the two-part combine per dof."""
+    nnz = int(torch.count_nonzero(planes))
+    nbytes = (2 * u.numel() + nnz + c.numel()) * u.element_size()
+    return least_time(nbytes, 2 * nnz * u.shape[0] + 3 * u.numel(), u.dtype)
+
+
+def assembled_csr(model, dtype):
+    """The assembled K_lam, K_mu (all dofs, no masking) as CSR tensors on
+    the model's device: the library yardstick's operands."""
+    import scipy.sparse as sp
+
+    lm = model.lm.cpu().numpy()
+    rows = np.repeat(lm, lm.shape[1], axis=1).reshape(-1)
+    cols = np.tile(lm, (1, lm.shape[1])).reshape(-1)
+    out = []
+    for ke in (model.ke_lam, model.ke_mu):
+        K = sp.csr_matrix((ke.cpu().numpy().reshape(-1), (rows, cols)),
+                          shape=(model.ndof, model.ndof))
+        out.append(torch.sparse_csr_tensor(
+            torch.as_tensor(K.indptr, dtype=torch.int64),
+            torch.as_tensor(K.indices, dtype=torch.int64),
+            torch.as_tensor(K.data, dtype=dtype), size=K.shape).to(model.device))
+    return out
+
+
+def library_affine(K, c, uT):
+    """``K(c) u`` through cuSPARSE: two sparse products on uT (ndof, B) and
+    the per-sample combine; the port never calls it."""
+    return torch.sparse.mm(K[0], uT) * c[:, 0] + torch.sparse.mm(K[1], uT) * c[:, 1]
 
 
 def card_line():
@@ -248,45 +317,82 @@ def main():
 
     scaled = scaled_path(dev, card)
     box = box3d_path(dev, card)
+    elem = element_path(dev, card)
 
-    print(card)
-    print(json.dumps({"kernels": [{
+    def spectral_bound(B, n):  # V, Vt, g, coeffs, b read; x, a written (f32)
+        return least_time(4 * (2 * n * n + n + 2 * B + 3 * B * n), 4 * B * n * n + 3 * B * n)
+
+    records = [{
         "name": "spectral_apply_batched",
         "route": "cuda",
         "source": "vbicm_tpu_torch/csrc/spectral_apply.cu",
         "replaces": "vbicm_tpu/ops/spectral_pallas.py:56",
-        "launches": launches + scaled["spectral_launches"] + box["spectral_launches"],
+        "launches": (launches + scaled["spectral_launches"] + box["spectral_launches"]
+                     + elem["spectral_launches"]),
         "launches_by_path": {"cooks_20x10": launches,
                              "scaled_160x80": scaled["spectral_launches"],
-                             "box3d_32x8x8": box["spectral_launches"]},
+                             "box3d_32x8x8": box["spectral_launches"],
+                             "rom_160x80": elem["spectral_launches"]},
         "max_abs_err": main_abs_err,
         "ms": times[MAIN_SHAPE, torch.float32][0],
         "plain_ms": times[MAIN_SHAPE, torch.float32][1],
+        "bound_ms": spectral_bound(*MAIN_SHAPE)[0],
+        "bound_by": spectral_bound(*MAIN_SHAPE)[1],
+        "library_ms": None,  # no one PyTorch call computes V diag(1/d) V^T b per sample
         "ms_coarse_256x1680": times[COARSE_SHAPE, torch.float32][0],
         "plain_ms_coarse_256x1680": times[COARSE_SHAPE, torch.float32][1],
+        "bound_ms_coarse_256x1680": spectral_bound(*COARSE_SHAPE)[0],
         "ms_coarse_256x1200": box["spectral_ms"][0],
         "plain_ms_coarse_256x1200": box["spectral_ms"][1],
+        "bound_ms_coarse_256x1200": spectral_bound(*BOX_COARSE_SHAPE)[0],
     }, {
         "name": "stencil_affine_matvec",
         "route": "cuda",
         "source": "vbicm_tpu_torch/csrc/stencil_affine.cu",
         "replaces": "vbicm_tpu/ops/stencil_pallas.py:71",
         "launches": scaled["stencil_launches"],
+        "launches_by_path": {"scaled_160x80": scaled["stencil_launches"]},
         "max_abs_err": scaled["stencil_abs_err"],
         "ms": scaled["stencil_ms"][torch.float32][0],
         "plain_ms": scaled["stencil_ms"][torch.float32][1],
+        "bound_ms": scaled["stencil_bound"][0],
+        "bound_by": scaled["stencil_bound"][1],
+        "library_ms": scaled["stencil_ms"][torch.float32][2],
     }, {
         "name": "stencil3d_affine_matvec",
         "route": "cuda",
         "source": "vbicm_tpu_torch/csrc/stencil3d_affine.cu",
         "replaces": "vbicm_tpu/ops/stencil3d_pallas.py:63",
         "launches": box["stencil3d_launches"],
+        "launches_by_path": {"box3d_32x8x8": box["stencil3d_launches"]},
         "max_abs_err": box["stencil3d_abs_err"],
         "ms": box["stencil3d_ms"][(32, 8, 8), torch.float32][0],
         "plain_ms": box["stencil3d_ms"][(32, 8, 8), torch.float32][1],
+        "bound_ms": box["stencil3d_bound"][32, 8, 8][0],
+        "bound_by": box["stencil3d_bound"][32, 8, 8][1],
+        "library_ms": box["stencil3d_ms"][(32, 8, 8), torch.float32][2],
         "ms_64x16x16": box["stencil3d_ms"][(64, 16, 16), torch.float32][0],
         "plain_ms_64x16x16": box["stencil3d_ms"][(64, 16, 16), torch.float32][1],
-    }]}))
+        "bound_ms_64x16x16": box["stencil3d_bound"][64, 16, 16][0],
+        "library_ms_64x16x16": box["stencil3d_ms"][(64, 16, 16), torch.float32][2],
+    }, {
+        "name": "element_affine_matvec_kernel",
+        "route": "cuda",
+        "source": "vbicm_tpu_torch/csrc/element_matvec.cu",
+        "replaces": "vbicm_tpu/ops/element_matvec_pallas.py:75",
+        "launches": elem["element_launches"],
+        "launches_by_path": {"rom_160x80": elem["element_launches"]},
+        "max_abs_err": elem["element_abs_err"],
+        "ms": elem["element_ms"][torch.float32][0],
+        "plain_ms": elem["element_ms"][torch.float32][1],
+        "bound_ms": elem["element_ms"][torch.float32][3][0],
+        "bound_by": elem["element_ms"][torch.float32][3][1],
+        "library_ms": elem["element_ms"][torch.float32][2],
+        "ms_f64": elem["element_ms"][torch.float64][0],
+        "bound_ms_f64": elem["element_ms"][torch.float64][3][0],
+    }]
+    print(card)
+    print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))
 
@@ -433,9 +539,17 @@ def scaled_path(dev, card):
         u, c = u64.to(dtype), c64.to(dtype)
         k_ms = time_ms(lambda: op.affine(c, u))
         p_ms = time_ms(lambda: stencil_affine_reference(op.W[dtype], c, u), warmup=5, reps=50)
-        out["stencil_ms"][dtype] = (k_ms, p_ms)
+        K, uT = assembled_csr(model, dtype), u.T.contiguous()
+        lib_err = rel_err(library_affine(K, c, uT).T, op.affine(c, u))
+        if not lib_err <= REL_TOL[dtype]:
+            fail(f"cuSPARSE yardstick vs stencil kernel at 160x80 {dtype}: rel err {lib_err}")
+        l_ms = time_ms(lambda: library_affine(K, c, uT), warmup=5, reps=50)
+        out["stencil_ms"][dtype] = (k_ms, p_ms, l_ms)
+        if dtype == torch.float32:
+            out["stencil_bound"] = stencil_least_time(op.planes[dtype], c, u)
         print(f"[12 times] stencil matvec (B=256, 160x80) {dtype}: kernel {k_ms:.4f} ms, plain "
-              f"{p_ms:.4f} ms, on {card}", flush=True)
+              f"{p_ms:.4f} ms, cuSPARSE yardstick {l_ms:.4f} ms (rel err {lib_err:.1e}), on "
+              f"{card}", flush=True)
     stencil_affine_matvec.launches = saved
     thetas = torch.randn((256, 2), generator=torch.Generator().manual_seed(5),
                          dtype=torch.float64).to(dev)
@@ -453,6 +567,257 @@ def scaled_path(dev, card):
               f"{256 / dt:.1f} solves/s ({dt * 1e3:.1f} ms a batch); CG iterations per solve "
               f"(first CG, refinement CG) mean {its.mean(1).tolist()}, max "
               f"{its.max(1).values.tolist()}, on {card}", flush=True)
+    return out
+
+
+def element_path(dev, card):
+    """Phases 18-23: the element path (Jacobi-PCG, the element-path
+    two-level solver and the reduced-basis trainer) and its kernel."""
+    import dataclasses
+    import importlib.util
+
+    from vbicm_tpu_torch import mesh as meshes
+    from vbicm_tpu_torch.config import ProblemConfig, SectionCard
+    from vbicm_tpu_torch.model import build_fem_model
+    from vbicm_tpu_torch.ops.assembly import element_affine_matvec
+    from vbicm_tpu_torch.ops.element_kernel import ElementOperator, element_affine_matvec_kernel
+    from vbicm_tpu_torch.ops.spectral_kernel import spectral_apply_batched
+    from vbicm_tpu_torch.rom import build_reduced_basis, make_fh_fun_rom
+    from vbicm_tpu_torch.solver import make_fh_fun, make_solver, make_two_level_solver
+
+    out = {}
+    f32, f64 = torch.float32, torch.float64
+    # 18. the element kernel against its plain version, ragged sample tiles,
+    #     two launches bitwise equal
+    worst = {}
+    saved = element_affine_matvec_kernel.launches
+    for name, make, is3d in ELEMENT_MESHES:
+        m = build_fem_model(make(meshes), SectionCard(stype=4) if is3d else SectionCard(),
+                            device=dev, dense=False)
+        op = ElementOperator(torch.stack([m.ke_lam, m.ke_mu]), m.lm, m.ndof)
+        for B in ELEMENT_BATCHES:
+            rng = np.random.default_rng(B + m.ndof)
+            u64 = torch.as_tensor(rng.normal(size=(B, m.ndof)), device=dev)
+            c64 = torch.as_tensor(rng.uniform(1.0, 3.0, (B, 2)), device=dev)
+            for dtype in (f32, f64):
+                u, c = u64.to(dtype), c64.to(dtype)
+                q, q2 = op.affine(c, u), op.affine(c, u)
+                qr = element_affine_matvec(op.ke[dtype], m.lm, c, u, m.ndof)
+                torch.cuda.synchronize()
+                err = rel_err(q, qr)
+                if not err <= REL_TOL[dtype]:
+                    fail(f"element kernel vs plain at {name} B={B} {dtype}: rel err {err}")
+                if not torch.equal(q, q2):
+                    fail(f"element kernel at {name} B={B} {dtype}: two launches differ")
+                worst[dtype] = max(worst.get(dtype, 0.0), err)
+                if (name, B, dtype) == ("160x80", 256, f32):
+                    out["element_abs_err"] = float((q - qr).abs().max())
+            if (name, B) == ("160x80", 256):
+                timed = (m, op, c64, u64)
+    print(f"[18 element] ok: max rel err vs plain (of max|q|) f32 {worst[f32]:.3e} (tol 2e-5), "
+          f"f64 {worst[f64]:.3e} (tol 1e-12), two launches bitwise equal, over "
+          f"{[n for n, _, _ in ELEMENT_MESHES]} x B in {ELEMENT_BATCHES}", flush=True)
+    m, op, c64, u64 = timed
+    out["element_ms"] = {}
+    for dtype in (f32, f64):
+        u, c = u64.to(dtype), c64.to(dtype)
+        k_ms = time_ms(lambda: op.affine(c, u), warmup=10, reps=100)
+        p_ms = time_ms(lambda: element_affine_matvec(op.ke[dtype], m.lm, c, u, m.ndof),
+                       warmup=3, reps=20)
+        K, uT = assembled_csr(m, dtype), u.T.contiguous()
+        lib_err = rel_err(library_affine(K, c, uT).T, op.affine(c, u))
+        if not lib_err <= REL_TOL[dtype]:
+            fail(f"cuSPARSE yardstick vs element kernel at 160x80 {dtype}: rel err {lib_err}")
+        l_ms = time_ms(lambda: library_affine(K, c, uT), warmup=3, reps=20)
+        # u and q once, the blocks and the dof map once (not the kernel's own
+        # incidence tables, which the function does not need); an FMA per
+        # block entry per sample, and the two-part combine per dof
+        nbytes = ((2 * u.numel() + op.ke[dtype].numel() + c.numel()) * u.element_size()
+                  + 4 * op.lm.numel())
+        flops = 2 * op.ke[dtype].numel() * u.shape[0] + 3 * u.numel()
+        out["element_ms"][dtype] = (k_ms, p_ms, l_ms, least_time(nbytes, flops, dtype))
+        print(f"[18 times] element matvec (B=256, 160x80) {dtype}: kernel {k_ms:.4f} ms, plain "
+              f"{p_ms:.4f} ms, cuSPARSE yardstick {l_ms:.4f} ms (rel err {lib_err:.1e}); bound "
+              f"{out['element_ms'][dtype][3][0]:.4f} ms ({out['element_ms'][dtype][3][1]}), on "
+              f"{card}", flush=True)
+    element_affine_matvec_kernel.launches = saved
+
+    # 19. Jacobi-PCG (make_solver on matrix-free models) against the dense
+    #     spectral solve of the same mesh
+    rng = np.random.default_rng(19)
+    lam = torch.as_tensor(rng.uniform(8.0, 16.0, 8), device=dev)
+    mu = torch.as_tensor(rng.uniform(6.0, 9.0, 8), device=dev)
+    for name, mesh, sec in (("20x10", meshes.cooks_membrane_mesh(20, 10), SectionCard()),
+                            ("20x10 renumbered",
+                             meshes.renumber_mesh(meshes.cooks_membrane_mesh(20, 10), seed=3),
+                             SectionCard()),
+                            ("hex8 8x4x4", meshes.beam_hex8_mesh(8, 4, 4), SectionCard(stype=4))):
+        mf = build_fem_model(mesh, sec, device=dev, dense=False)
+        ud = make_solver(build_fem_model(mesh, sec, device=dev, dense=True))(lam, mu)
+        solve = make_solver(mf, cg_tol=1e-14)
+        err = float((solve(lam, mu) - ud).abs().max())
+        iters = int(solve.solver.last_cg_iters[0].max())
+        # atol 1e-8 (tests/test_forward_parity.py:111-119) on Cook's, whose
+        # max |u| is ~6; 1e-10 of max |u| on the box (max |u| ~135)
+        tol = 1e-8 if sec.stype == 2 else 1e-10 * float(ud.abs().max())
+        if not err <= tol:
+            fail(f"Jacobi-PCG f64 vs dense at {name}: max abs err {err} > {tol:g}")
+        msg = (f"[19 jacobi-pcg] ok: {name} f64 CG tol 1e-14 vs dense spectral, max abs err "
+               f"{err:.2e} (tol {tol:.2g}), {iters} iterations")
+        if sec.stype == 2:
+            solve32 = make_solver(mf, factor_dtype=f32, refine_iters=3, cg_tol=1e-6)
+            u32 = solve32(lam, mu)
+            rel = float(((u32 - ud).norm(dim=-1) / ud.norm(dim=-1)).max())
+            if not rel < 1e-9:
+                fail(f"Jacobi-PCG f32 + 3 refinements vs dense at {name}: rel err {rel}")
+            msg += (f"; f32 CG tol 1e-6 + 3 refinements rel err {rel:.2e} (tol 1e-9), "
+                    f"iterations {[int(i.max()) for i in solve32.solver.last_cg_iters]}")
+        print(msg, flush=True)
+
+    # 20. the element-path two-level solve at 160x80 against the JAX golden
+    #     and against the stencil path on the same thetas, the trainer's
+    #     setting (f32 CG tol 3e-3, maxiter 400, one f64 refinement)
+    with open(os.path.join(ROOT, "tests", "fixtures", "scaled_160x80_golden.json")) as f:
+        gold = json.load(f)
+    nx, ny, r = (gold["mesh"][k] for k in ("nx", "ny", "ratio"))
+    model = build_fem_model(meshes.cooks_membrane_mesh(nx, ny), device=dev, dense=False)
+    coarse = build_fem_model(meshes.cooks_membrane_mesh(nx // r, ny // r), device=dev, dense=True)
+    probe = gold["probe"]
+    cfg = dataclasses.replace(ProblemConfig(), node_id=probe["node_id"], ele_id=probe["ele_id"],
+                              nipt_id=tuple(probe["nipt_id"]))
+    thetas = torch.as_tensor(gold["thetas"], dtype=torch.float64, device=dev)
+    y_gold, h_gold = (torch.as_tensor(gold[k], dtype=torch.float64, device=dev) for k in "yh")
+    paths = {}
+    for use_stencil in (False, True):
+        solve = make_two_level_solver(model, coarse, nx // r, ny // r, r, cg_dtype=f32,
+                                      refine_iters=1, tol=3e-3, maxiter=400,
+                                      use_stencil=use_stencil)
+        fh = make_fh_fun(model, cfg, solve_free=solve)
+        with torch.no_grad():
+            y, h = fh(thetas)
+        paths[use_stencil] = {"fh": fh, "solve": solve, "y": y, "h": h,
+                              "iters": [float(it.double().mean()) for it in
+                                        solve.solver.last_cg_iters]}
+    el, st = paths[False], paths[True]
+    errs = (rel_err(el["y"], y_gold), rel_err(el["h"], h_gold))
+    errs_st = (rel_err(el["y"], st["y"]), rel_err(el["h"], st["h"]))
+    if not max(errs) <= 1e-6:
+        fail(f"element two-level vs JAX golden: rel err (y, h) {errs} > 1e-6")
+    if not max(errs_st) <= 1e-6:
+        fail(f"element two-level vs stencil two-level: rel err (y, h) {errs_st} > 1e-6")
+    if not all(abs(e - s) <= 0.1 * s for e, s in zip(el["iters"], st["iters"])):
+        fail(f"element vs stencil mean CG iterations per run {el['iters']} vs {st['iters']}: "
+             "more than 10 % apart")
+    print(f"[20 element two-level] ok: 160x80 f32 CG (tol 3e-3) + 1 f64 refinement, element path "
+          f"vs JAX f64 golden rel err y {errs[0]:.3e}, h {errs[1]:.3e} (tol 1e-6); vs the stencil "
+          f"path y {errs_st[0]:.3e}, h {errs_st[1]:.3e} (tol 1e-6); mean CG iterations per run "
+          f"element {el['iters']}, stencil {st['iters']} (within 10 %)", flush=True)
+
+    # 21. the element-path adjoint at 40x20 (coarse 10x5) against the dense
+    #     spectral solve, f64, phase 10's bounds
+    fine40 = build_fem_model(meshes.cooks_membrane_mesh(40, 20), device=dev, dense=True)
+    coarse10 = build_fem_model(meshes.cooks_membrane_mesh(10, 5), device=dev, dense=True)
+    rng = np.random.default_rng(3)
+    lam = torch.as_tensor(rng.uniform(8.0, 16.0, 64), device=dev)
+    mu = torch.as_tensor(rng.uniform(6.0, 9.0, 64), device=dev)
+    wv = torch.as_tensor(rng.normal(size=(64, fine40.ndof)), device=dev) * fine40.free_mask
+    vals, grads = [], []
+    for solve in (make_two_level_solver(fine40, coarse10, 10, 5, 4, cg_dtype=f32,
+                                        refine_iters=1, tol=3e-3, maxiter=400),
+                  make_solver(fine40)):
+        a, mm = lam.clone().requires_grad_(True), mu.clone().requires_grad_(True)
+        J = (solve(a, mm) * wv).sum(-1)
+        vals.append(J.detach())
+        grads.append(torch.stack(torch.autograd.grad(J.sum(), (a, mm)), -1))
+    adj = (rel_err(vals[0], vals[1]), rel_err(grads[0], grads[1]))
+    if not (adj[0] <= 1e-7 and adj[1] <= 1e-6):
+        fail(f"element two-level adjoint vs dense at 40x20: rel err (value, grad) {adj} > "
+             "(1e-7, 1e-6)")
+    print(f"[21 element adjoint] ok: 40x20 element two-level (f32 CG + 1 f64 refinement) vs "
+          f"dense spectral f64, 64 probe functionals: value rel err {adj[0]:.3e} (tol 1e-7), "
+          f"d/d(lam, mu) {adj[1]:.3e} (tol 1e-6)", flush=True)
+
+    # 22. the main path: examples/train_scaled_rom_torch.py -- the certified
+    #     reduced basis at 160x80, the two-step trainer through it, and the
+    #     full-order spot check through the element-path two-level solver
+    spec = importlib.util.spec_from_file_location(
+        "train_scaled_rom_torch", os.path.join(ROOT, "examples", "train_scaled_rom_torch.py"))
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    rom_model, rom_cfg = example.build(nx, ny, dev)
+    if (rom_cfg.node_id, rom_cfg.ele_id, list(rom_cfg.nipt_id)) != \
+            (probe["node_id"], probe["ele_id"], probe["nipt_id"]):
+        fail(f"the ROM example's probes {rom_cfg} are not the golden's {probe}")
+    tic = time.perf_counter()
+    rb = build_reduced_basis(rom_model, tol=1e-10)
+    rb_s = time.perf_counter() - tic
+    if not rb.max_rel_residual < 1e-10:
+        fail(f"reduced basis at 160x80: max relative residual {rb.max_rel_residual} >= 1e-10")
+    fh_rom = make_fh_fun_rom(rom_model, rb, rom_cfg)
+    with torch.no_grad():
+        y, h = fh_rom(thetas)
+    rom_errs = (rel_err(y, y_gold), rel_err(h, h_gold))
+    if not max(rom_errs) < 1e-5:
+        fail(f"ROM fh vs JAX golden: rel err (y, h) {rom_errs} >= 1e-5")
+    spectral_apply_batched.launches = 0
+    element_affine_matvec_kernel.launches = 0
+    summary = example.train_and_check(rom_model, rom_cfg, rb, nx, ny, n_data=256, epochs1=2,
+                                      epochs2=2, seed=0, device=dev, verbose=False)
+    torch.cuda.synchronize()
+    out["element_launches"] = element_affine_matvec_kernel.launches
+    out["spectral_launches"] = spectral_apply_batched.launches
+    losses = np.concatenate([summary["hist_step1"], summary["hist_step2"]])
+    if not np.all(np.isfinite(losses)):
+        fail(f"ROM trainer: non-finite losses: step1 {summary['hist_step1']}, step2 "
+             f"{summary['hist_step2']}")
+    if not summary["spot_rel_err"] < example.SPOT_TOL:
+        fail(f"ROM vs element-path full-order spot check: rel err {summary['spot_rel_err']} >= "
+             f"{example.SPOT_TOL}")
+    if out["element_launches"] <= 0 or out["spectral_launches"] <= 0:
+        fail(f"the ROM example's path launched element {out['element_launches']}, spectral "
+             f"{out['spectral_launches']} times; both must be > 0")
+    print(f"[22 rom] ok: 160x80 reduced basis r={rb.r}, max relative residual "
+          f"{rb.max_rel_residual:.2e} (< 1e-10), built in {rb_s:.2f} s on the host; ROM fh vs JAX "
+          f"golden rel err y {rom_errs[0]:.3e}, h {rom_errs[1]:.3e} (tol 1e-5); trainer n=256 x "
+          f"ne_sam 4, 2 + 2 epochs: step1 losses {summary['hist_step1']}, step2 losses "
+          f"{summary['hist_step2']}; spot check at 16 posterior means rel err "
+          f"{summary['spot_rel_err']:.3e} (tol 1e-5), CG iterations {summary['spot_cg_iters']}; "
+          f"kernel launches element {out['element_launches']}, spectral "
+          f"{out['spectral_launches']}", flush=True)
+
+    # 23. times (records, not a claim), each beside the card's name and limit
+    th = torch.randn((256, 2), generator=torch.Generator().manual_seed(5),
+                     dtype=torch.float64).to(dev)
+    saved = (element_affine_matvec_kernel.launches, spectral_apply_batched.launches)
+    for use_stencil in (False, True):
+        fh, solve = paths[use_stencil]["fh"], paths[use_stencil]["solve"]
+        with torch.no_grad():
+            fh(th)
+            torch.cuda.synchronize()
+            tic = time.perf_counter()
+            for _ in range(3):
+                fh(th)
+            torch.cuda.synchronize()
+        dt = (time.perf_counter() - tic) / 3
+        its = torch.stack(solve.solver.last_cg_iters).double()
+        run_iters = float(its.max(1).values.sum())  # the batch runs until its slowest lane stops
+        print(f"[23 times] {'stencil' if use_stencil else 'element'}-path two-level fh (160x80, "
+              f"B=256, f32 CG + 1 f64 refinement): {256 / dt:.1f} solves/s ({dt * 1e3:.1f} ms a "
+              f"batch, {dt * 1e3 / run_iters:.3f} ms per CG iteration over {run_iters:.0f}); CG "
+              f"iterations per solve (first CG, refinement CG) mean {its.mean(1).tolist()}, max "
+              f"{its.max(1).values.tolist()}, on {card}", flush=True)
+    with torch.no_grad():
+        for _ in range(5):
+            fh_rom(th)
+        torch.cuda.synchronize()
+        tic = time.perf_counter()
+        for _ in range(100):
+            fh_rom(th)
+        torch.cuda.synchronize()
+    dt = (time.perf_counter() - tic) / 100
+    print(f"[23 times] ROM fh (160x80, r={rb.r}, B=256): {256 / dt:.0f} solves/s "
+          f"({dt * 1e3:.3f} ms a batch), on {card}", flush=True)
+    element_affine_matvec_kernel.launches, spectral_apply_batched.launches = saved
     return out
 
 
@@ -483,10 +848,10 @@ def box3d_path(dev, card):
     out = {}
 
     # 13. the 3-D stencil kernel against its plain version, ragged tiles
-    worst, ops, cases = {}, {}, {}
+    worst, ops, cases, models = {}, {}, {}, {}
     saved = stencil3d_affine_matvec.launches
     for cells in BOX_GRIDS:
-        m = build_fem_model(beam_hex8_mesh(*cells), sec, device=dev, dense=False)
+        models[cells] = m = build_fem_model(beam_hex8_mesh(*cells), sec, device=dev, dense=False)
         ops[cells] = op = StencilOperator3d(m, *cells)
         W = {dt: op.W.to(dev, dt) for dt in (torch.float32, torch.float64)}  # the plain operand
         for B in STENCIL_BATCHES:
@@ -627,7 +992,7 @@ def box3d_path(dev, card):
     steps = math.ceil(ds.n_sam / tcfg.batch_size) * (tcfg.num_epoch1 - 1)
     print(f"[17 times] 3-D step-1 train steps/s (32x8x8, B=64x4, f32 CG + 1 f64 refinement, "
           f"epoch 2): {steps / sum(res.epoch_times_step1[1:]):.3f} on {card}", flush=True)
-    out["stencil3d_ms"] = {}
+    out["stencil3d_ms"], out["stencil3d_bound"] = {}, {}
     saved = stencil3d_affine_matvec.launches
     for cells in ((32, 8, 8), (64, 16, 16)):
         op = ops[cells]
@@ -636,11 +1001,21 @@ def box3d_path(dev, card):
             u, c, W = u64.to(dtype), c64.to(dtype), op.W.to(dev, dtype)
             k_ms = time_ms(lambda: op.affine(c, u), warmup=10, reps=100)
             p_ms = time_ms(lambda: stencil3d_affine_reference(W, c, u), warmup=3, reps=20)
-            out["stencil3d_ms"][cells, dtype] = (k_ms, p_ms)
+            K, uT = assembled_csr(models[cells], dtype), u.T.contiguous()
+            lib_err = rel_err(library_affine(K, c, uT).T, op.affine(c, u))
+            if not lib_err <= REL_TOL[dtype]:
+                fail(f"cuSPARSE yardstick vs 3-D stencil kernel at {cells} {dtype}: rel err "
+                     f"{lib_err}")
+            l_ms = time_ms(lambda: library_affine(K, c, uT), warmup=3, reps=20)
+            del K, uT
+            out["stencil3d_ms"][cells, dtype] = (k_ms, p_ms, l_ms)
             nbytes = (2 * u.numel() + op.planes[dtype].numel() + c.numel()) * u.element_size()
+            if dtype == torch.float32:
+                out["stencil3d_bound"][cells] = stencil_least_time(op.planes[dtype], c, u)
             print(f"[17 times] 3-D stencil matvec (B=256, {cells[0]}x{cells[1]}x{cells[2]}) "
                   f"{dtype}: kernel {k_ms:.4f} ms ({nbytes / k_ms / 1e9:.3f} TB/s of u, q and "
-                  f"planes once), plain {p_ms:.4f} ms, on {card}", flush=True)
+                  f"planes once), plain {p_ms:.4f} ms, cuSPARSE yardstick {l_ms:.4f} ms (rel "
+                  f"err {lib_err:.1e}), on {card}", flush=True)
     stencil3d_affine_matvec.launches = saved
     saved = spectral_apply_batched.launches
     for dtype in (torch.float32, torch.float64):

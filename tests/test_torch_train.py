@@ -113,6 +113,7 @@ def test_port_sources_import_no_jax():
              os.path.join(ROOT, "examples", "train_vi_torch.py"),
              os.path.join(ROOT, "examples", "train_scaled_fullorder_torch.py"),
              os.path.join(ROOT, "examples", "train_scaled_3d_torch.py"),
+             os.path.join(ROOT, "examples", "train_scaled_rom_torch.py"),
              os.path.join(ROOT, "tools", "profile_scaled_torch.py")]
     for m in pkgutil.walk_packages(vbicm_tpu_torch.__path__, "vbicm_tpu_torch."):
         files.append(importlib.util.find_spec(m.name).origin)
@@ -151,6 +152,16 @@ def test_scaled_3d_example_refuses_to_run_without_a_gpu():
     proc = subprocess.run([sys.executable,
                            os.path.join(ROOT, "examples", "train_scaled_3d_torch.py"),
                            "--nx", "4", "--ny", "2", "--nz", "2", "--n-data", "8"],
+                          cwd=ROOT, capture_output=True, text=True, timeout=120,
+                          env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    assert proc.returncode != 0
+    assert "no GPU" in proc.stderr
+
+
+def test_scaled_rom_example_refuses_to_run_without_a_gpu():
+    proc = subprocess.run([sys.executable,
+                           os.path.join(ROOT, "examples", "train_scaled_rom_torch.py"),
+                           "--nx", "8", "--ny", "4", "--n-data", "8"],
                           cwd=ROOT, capture_output=True, text=True, timeout=120,
                           env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
     assert proc.returncode != 0

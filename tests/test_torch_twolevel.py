@@ -149,13 +149,27 @@ def test_matfree_element_solver_matches_jax():
 @pytest.mark.parametrize("residual,val_tol,grad_tol", [("f64", 1e-9, 1e-6),
                                                         ("split_f32", 5e-5, 1e-4)])
 def test_two_level_solver_matches_jax(models, residual, val_tol, grad_tol):
+    _check_two_level_solver(models, residual, val_tol, grad_tol, use_stencil=True)
+
+
+@pytest.mark.parametrize("residual,val_tol,grad_tol", [("f64", 1e-9, 1e-6),
+                                                        ("split_f32", 5e-5, 1e-4)])
+def test_element_path_two_level_solver_matches_jax(models, residual, val_tol, grad_tol):
+    """use_stencil=False: the element operator (the element kernel's plain
+    version here) and the gather transfers, against the JAX package's
+    element path."""
+    _check_two_level_solver(models, residual, val_tol, grad_tol, use_stencil=False)
+
+
+def _check_two_level_solver(models, residual, val_tol, grad_tol, use_stencil):
     jfine, jcoarse, fine, coarse = models
     coeffs = _coeffs(5, 7)
     wvec = np.random.default_rng(8).normal(size=(5, fine.ndof))
     # float32 CG at tol 1e-4 plus one refinement: tight enough that the two
     # packages' float32 roundings, taken in different orders, stay below the
     # tolerances
-    kw = dict(refine_iters=1, tol=1e-4, maxiter=400, use_stencil=True, refine_residual=residual)
+    kw = dict(refine_iters=1, tol=1e-4, maxiter=400, use_stencil=use_stencil,
+              refine_residual=residual)
     js = jax_make_two_level_solver(jfine, jcoarse, NX // R, NY // R, R, cg_dtype=jnp.float32, **kw)
     ts = make_two_level_solver(fine, coarse, NX // R, NY // R, R, cg_dtype=torch.float32, **kw)
 
@@ -180,9 +194,17 @@ def _scaled_cfg(model, nx, ny, cls):
 
 
 def test_fh_with_two_level_solver_matches_jax(models):
+    _check_fh_two_level(models, use_stencil=True)
+
+
+def test_fh_with_element_path_two_level_solver_matches_jax(models):
+    _check_fh_two_level(models, use_stencil=False)
+
+
+def _check_fh_two_level(models, use_stencil):
     jfine, jcoarse, fine, coarse = models
     thetas = np.random.default_rng(9).normal(size=(6, 2))
-    kw = dict(tol=1e-12, maxiter=400, use_stencil=True)
+    kw = dict(tol=1e-12, maxiter=400, use_stencil=use_stencil)
     js = jax_make_two_level_solver(jfine, jcoarse, NX // R, NY // R, R, **kw)
     ts = make_two_level_solver(fine, coarse, NX // R, NY // R, R, **kw)
     yj, hj = jax.jit(jax.vmap(jax_make_fh_fun(jfine, _scaled_cfg(jfine, NX, NY, JaxProblemConfig),
@@ -241,7 +263,7 @@ def test_update_step1_through_two_level_fh_matches_jax(models):
                                            rtol=0, atol=1e-6 * scale, err_msg=f"{name}/{dense}/{k}")
 
 
-@pytest.mark.parametrize("kwargs", [dict(use_stencil=False), dict(cycle="vcycle"),
+@pytest.mark.parametrize("kwargs", [dict(cycle="vcycle"),
                                     dict(transfer="matmul"), dict(transfer="dense"),
                                     dict(refine_residual="compensated"),
                                     dict(with_rhs_solver=True)],

@@ -9,7 +9,11 @@
   (8,019 dofs, examples/train_scaled_3d_torch.py: box two-level solver,
   input standardization, per-sample pairing);
 - ``box3d_fh``: one batch of 256 observation-operator solves on the 64x16x16
-  box (56,355 dofs; float32 CG at tol 3e-3 + two float64 refinements).
+  box (56,355 dofs; float32 CG at tol 3e-3 + two float64 refinements);
+- ``element_fh`` and ``stencil_fh``: one batch of 256 observation-operator
+  solves on Cook's 160x80 through the two-level solver's element path
+  (the element kernel, gather transfers) or its stencil path (float32 CG
+  at tol 3e-3 + one refinement), as chip_smoke.py times them.
 
 Prints the card's name and power limit, the untraced step time, and from a
 ``torch.profiler`` trace of --steps steps: device time by kernel family,
@@ -18,6 +22,7 @@ of the traced wall time. Writes the Chrome trace to --trace.
 
     python tools/profile_scaled_torch.py --steps 3 --trace scaled_step_trace.json
     python tools/profile_scaled_torch.py --config box3d --steps 3
+    python tools/profile_scaled_torch.py --config element_fh --steps 2
 """
 import os as _os, sys as _sys
 _sys.path.insert(0, _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))))
@@ -33,6 +38,7 @@ import time
 import numpy as np
 
 FAMILIES = (  # (family, substrings of the kernel name), first match wins
+    ("element kernel", ("element_affine_kernel",)),
     ("stencil3d kernel", ("stencil3d_affine_kernel",)),
     ("stencil kernel", ("stencil_affine_kernel",)),
     ("spectral kernel", ("spectral_apply_kernel",)),
@@ -144,10 +150,37 @@ def box3d_fh(torch, dev, residual):
     return step
 
 
+def cooks_fh(torch, dev, residual, use_stencil):
+    """One batch of 256 observation-operator solves at Cook's 160x80
+    (coarse 40x20) through the two-level solver's element or stencil
+    path."""
+    from vbicm_tpu_torch.config import ProblemConfig
+    from vbicm_tpu_torch.mesh import cooks_membrane_mesh
+    from vbicm_tpu_torch.model import build_fem_model
+    from vbicm_tpu_torch.solver import make_fh_fun, make_two_level_solver
+
+    nx, ny = 160, 80
+    model = build_fem_model(cooks_membrane_mesh(nx, ny), device=dev, dense=False)
+    coarse = build_fem_model(cooks_membrane_mesh(nx // 4, ny // 4), device=dev, dense=True)
+    cfg = dataclasses.replace(ProblemConfig(), node_id=model.nnodes, ele_id=(ny // 2) * nx + 12)
+    solve = make_two_level_solver(model, coarse, nx // 4, ny // 4, 4, cg_dtype=torch.float32,
+                                  refine_iters=1, tol=3e-3, maxiter=400, use_stencil=use_stencil,
+                                  refine_residual=residual)
+    fh = make_fh_fun(model, cfg, solve_free=solve)
+    thetas = torch.as_tensor(np.random.default_rng(5).normal(size=(256, 2)), device=dev)
+
+    def step():
+        with torch.no_grad():
+            return fh(thetas)[1].sum()
+
+    return step
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=3)
-    ap.add_argument("--config", choices=("160x80", "box3d", "box3d_fh"), default="160x80")
+    ap.add_argument("--config", choices=("160x80", "box3d", "box3d_fh", "element_fh",
+                                         "stencil_fh"), default="160x80")
     ap.add_argument("--split-f32", action="store_true")
     ap.add_argument("--trace", type=str, default=None)
     args = ap.parse_args()
@@ -161,7 +194,9 @@ def main():
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
     residual = "split_f32" if args.split_f32 else "f64"
-    make = {"160x80": cooks_step, "box3d": box3d_step, "box3d_fh": box3d_fh}[args.config]
+    make = {"160x80": cooks_step, "box3d": box3d_step, "box3d_fh": box3d_fh,
+            "element_fh": lambda *a: cooks_fh(*a, use_stencil=False),
+            "stencil_fh": lambda *a: cooks_fh(*a, use_stencil=True)}[args.config]
     step = make(torch, dev, residual)
 
     for _ in range(2):

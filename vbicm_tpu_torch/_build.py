@@ -1,10 +1,11 @@
 """Build and load the package's CUDA kernels.
 
-The sources under ``csrc/`` (the spectral apply and the 2-D and 3-D stencil
-matvecs) have a plain C interface. At first use each is compiled with ``nvcc`` for
-``sm_90a``, all at once in parallel processes, and the objects are linked
-into one shared library under ``build/vbicm_tpu_torch/`` at the root of the
-checkout, loaded with ``ctypes``. The library's file name carries a hash of
+The sources under ``csrc/`` (the spectral apply, the 2-D and 3-D stencil
+matvecs and the element matvec) have a plain C interface. At first use each
+is compiled with ``nvcc`` for ``sm_90a``, all at once in parallel
+processes, and the objects are linked into one shared library under
+``build/vbicm_tpu_torch/`` at the root of the checkout, loaded with
+``ctypes``. The library's file name carries a hash of
 the sources and flags, so an edited source builds anew and a stale library
 is never loaded. Nothing is fetched; a failed build raises.
 """
@@ -38,6 +39,9 @@ _SIGNATURES = {
     # (w, coeffs, u, q, B, NZ, NY, NX3, stream) -> cudaError_t
     "vbicm_stencil3d_affine_f32": [_PTR] * 4 + [_INT] * 4 + [_PTR],
     "vbicm_stencil3d_affine_f64": [_PTR] * 4 + [_INT] * 4 + [_PTR],
+    # (ke, lm, row_ptr, ent, coeffs, u, q, B, ndof, nele, edof, stream) -> cudaError_t
+    "vbicm_element_affine_f32": [_PTR] * 7 + [_INT] * 4 + [_PTR],
+    "vbicm_element_affine_f64": [_PTR] * 7 + [_INT] * 4 + [_PTR],
 }
 
 

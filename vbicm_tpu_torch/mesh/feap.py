@@ -33,3 +33,18 @@ class MeshData:
     @property
     def nele(self) -> int:
         return int(self.conn.shape[0])
+
+
+def renumber_mesh(mesh: MeshData, seed: int) -> MeshData:
+    """The same mesh with its nodes and its elements renumbered by random
+    permutations drawn from ``seed``: an unstructured numbering (the dof
+    map then follows no grid) of identical elements. Each element keeps its
+    local node order."""
+    rng = np.random.default_rng(seed)
+    new_id = rng.permutation(mesh.nnodes).astype(np.int32)  # old node -> new node
+    coords = np.empty_like(mesh.coords)
+    coords[new_id] = mesh.coords
+    conn = new_id[mesh.conn][rng.permutation(mesh.nele)]
+    return dataclasses.replace(mesh, coords=coords, conn=conn, bc_nodes=new_id[mesh.bc_nodes],
+                               load_nodes=new_id[mesh.load_nodes],
+                               disp_nodes=new_id[mesh.disp_nodes])

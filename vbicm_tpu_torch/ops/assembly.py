@@ -3,12 +3,32 @@
 
 ``K @ u`` is applied per element: gather the element's dofs, multiply by the
 8x8 block, scatter-add back. Batched over samples, in plain PyTorch
-(``index_add_``); it is the matrix-free solver's operator when no stencil is
-given, and the tests' operator that does not share code with the stencil.
+(``index_add_``); it is the plain version of the element kernel
+(``ops.element_kernel``), and the tests' operator that does not share code
+with the stencil. :func:`dof_incidence` builds the kernel's tables.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+
+def dof_incidence(lm, ndof: int):
+    """The element-to-dof map read as a "pull" list for each dof, built on
+    the host: ``(row_ptr (ndof + 1,), ent (nele * edof,))``, int32 NumPy,
+    where ``ent[row_ptr[d]:row_ptr[d + 1]]`` are the flat entries
+    ``e * edof + i`` with ``lm[e, i] == d``, in increasing order. It is the
+    stable sort of the JAX package's ``make_sorted_scatter``, with the
+    sorted dof ids replaced by their row pointers."""
+    flat = np.asarray(lm.cpu() if isinstance(lm, torch.Tensor) else lm).reshape(-1)
+    if flat.size and (flat.min() < 0 or flat.max() >= ndof):
+        raise ValueError(f"dof map entries outside [0, {ndof})")
+    ent = np.argsort(flat, kind="stable")
+    row_ptr = np.zeros(ndof + 1, dtype=np.int64)
+    np.cumsum(np.bincount(flat, minlength=ndof), out=row_ptr[1:])
+    if row_ptr[-1] >= 2**31:
+        raise ValueError("the dof map is too large for int32 incidence tables")
+    return row_ptr.astype(np.int32), ent.astype(np.int32)
 
 
 def gather_element_dofs(u, lm):
@@ -55,5 +75,15 @@ def element_affine_matvec(ke_parts, lm, coeffs, u, ndof: int):
 
 
 def jacobi_diagonal(ke, lm, ndof: int):
-    """Diagonal of the assembled K from element blocks (nele, edof, edof)."""
-    return make_sorted_scatter(lm, ndof)(torch.diagonal(ke, dim1=-2, dim2=-1))
+    """Diagonal of the assembled K from element blocks (nele, edof, edof),
+    summed on the host in ke's dtype in the fixed order of
+    :func:`dof_incidence` (no atomics on the card, so every build gives the
+    same bits), returned on ke's device."""
+    row_ptr, ent = dof_incidence(lm, ndof)
+    vals = torch.diagonal(ke, dim1=-2, dim2=-1).detach().cpu().numpy().reshape(-1)[ent]
+    out = np.zeros(ndof, dtype=vals.dtype)
+    starts = row_ptr[:-1]
+    hit = starts < row_ptr[1:]  # dofs that some element touches
+    if vals.size:
+        out[hit] = np.add.reduceat(vals, starts[hit])
+    return torch.as_tensor(out, device=ke.device)

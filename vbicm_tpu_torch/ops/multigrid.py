@@ -1,7 +1,7 @@
 """Two-level (coarse grid + Jacobi) preconditioning for refined structured
 meshes, Cook's quad4 and the hex8 box (counterpart of
 ``vbicm_tpu/ops/multigrid.py``, the additive cycle with tensor-product
-transfers).
+transfers for the stencil paths and gather transfers for the element path).
 
     M^-1 r = P K_c(lam, mu)^-1 P^T r + omega * D^-1 r
 
@@ -102,6 +102,54 @@ def make_grid_transfer_nd(cells_coarse, ratio: int, ndof_node: int, *, device="c
     return prolong, restrict
 
 
+def make_gather_transfer(idx, w, *, device="cpu"):
+    """``(prolong, restrict)`` on batched flat dof vectors (2 dofs a node,
+    interleaved) from the gather tables of :func:`cooks_prolongation`: the
+    JAX package's gather/segment-sum transfers, the element-path two-level
+    solver's. Any (idx, w) works; no grid structure is assumed.
+
+    prolong: (B, 2 nc) -> (B, 2 nf), ``fine[n] = sum_k w[n, k] coarse[idx[n, k]]``,
+    a gather. restrict: the exact transpose, ``coarse[c] = sum w[n, k]
+    fine[n]`` over the (n, k) with ``idx[n, k] = c`` and ``w[n, k] != 0``,
+    also a gather, through a transposed table built here on the host (each
+    coarse node's fine nodes in increasing order, padded with weight 0):
+    the sums run in a fixed order, so the result repeats bit for bit on the
+    GPU, where ``index_add_`` would sum with atomics. Both follow their
+    input's dtype (float32 or float64)."""
+    idx = np.asarray(idx, dtype=np.int64)
+    w = np.asarray(w, dtype=np.float64)
+    nf = idx.shape[0]
+    nc = int(idx.max()) + 1
+    keep = w != 0.0
+    fine = np.broadcast_to(np.arange(nf)[:, None], idx.shape)[keep]
+    coarse, wk = idx[keep], w[keep]
+    order = np.lexsort((fine, coarse))  # by coarse node, then fine node
+    counts = np.bincount(coarse, minlength=nc)
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    slot = np.arange(order.size) - np.repeat(starts, counts)
+    width = max(1, int(counts.max()))
+    idx_t = np.zeros((nc, width), dtype=np.int64)
+    w_t = np.zeros((nc, width))
+    idx_t[coarse[order], slot] = fine[order]
+    w_t[coarse[order], slot] = wk[order]
+
+    gidx = torch.as_tensor(idx, device=device)
+    gidx_t = torch.as_tensor(idx_t, device=device)
+    weights = {dt: (torch.as_tensor(w, dtype=dt, device=device)[None, :, :, None],
+                    torch.as_tensor(w_t, dtype=dt, device=device)[None, :, :, None])
+               for dt in (torch.float32, torch.float64)}
+
+    def prolong(u_c):
+        B = u_c.shape[0]
+        return (u_c.reshape(B, nc, 2)[:, gidx] * weights[u_c.dtype][0]).sum(2).reshape(B, -1)
+
+    def restrict(r_f):
+        B = r_f.shape[0]
+        return (r_f.reshape(B, nf, 2)[:, gidx_t] * weights[r_f.dtype][1]).sum(2).reshape(B, -1)
+
+    return prolong, restrict
+
+
 def make_two_level_preconditioner(
     coarse_apply: Callable,
     fine_free_mask,
@@ -110,14 +158,15 @@ def make_two_level_preconditioner(
     omega: float = 0.5,
 ):
     """``prec(coeffs (B, 2), diag_inv (B, n), r (B, n)) -> z``, the additive
-    two-level preconditioner with structured-grid transfers.
+    two-level preconditioner.
 
     ``coarse_apply(coeffs, r_c) -> K_c^-1 r_c`` solves on the coarse
     full-dof vector (fixed dofs zero), e.g. ``solver.
-    make_coarse_spectral_apply``; ``grid_transfer`` is the ``(prolong,
-    restrict)`` pair of :func:`make_grid_transfer_nd`; diag_inv is the fine
-    Jacobi inverse diagonal for the current coefficients. The JAX package's
-    gather/segment-sum transfers (``grid_transfer=None``) are not ported."""
+    make_coarse_spectral_apply``; ``grid_transfer`` is a ``(prolong,
+    restrict)`` pair: the structured-grid transfers of
+    :func:`make_grid_transfer_nd` (the stencil paths) or the gather
+    transfers of :func:`make_gather_transfer` (the element path); diag_inv
+    is the fine Jacobi inverse diagonal for the current coefficients."""
     prolong, restrict = grid_transfer
     masks = {dt: fine_free_mask.to(dt) for dt in (torch.float32, torch.float64)}
 

@@ -28,7 +28,8 @@ import numpy as np
 import scipy.linalg
 import torch
 
-from .assembly import element_affine_matvec, jacobi_diagonal
+from .assembly import jacobi_diagonal
+from .element_kernel import ElementOperator
 from .spectral_kernel import spectral_apply_batched
 
 
@@ -190,8 +191,10 @@ class MatfreeAffineSolver:
         self.cg_dtype = wdt if cg_dtype is None else cg_dtype
         if refine_residual == "split_f32" and self.cg_dtype != torch.float32:
             raise ValueError("refine_residual='split_f32' needs cg_dtype=float32")
-        self.ke_parts = {wdt: ke_parts, self.cg_dtype: ke_parts.to(self.cg_dtype)}
-        self.lm = lm
+        # the element path's operator (blocks, dof map and incidence tables),
+        # built once; a given affine_matvec (e.g. a stencil) replaces it
+        self.element = (ElementOperator(ke_parts, lm, ndof, (wdt, self.cg_dtype))
+                        if affine_matvec is None else None)
         self.ndof = int(ndof)
         self.tol = float(tol)
         self.maxiter = int(maxiter)
@@ -209,10 +212,10 @@ class MatfreeAffineSolver:
 
     def affine(self, coeffs, u):
         """``K(c) u`` in u's dtype: the given fused apply, or the element
-        path."""
+        path (the element kernel on CUDA tensors, ``ops.element_kernel``)."""
         if self.affine_matvec is not None:
             return self.affine_matvec(coeffs, u)
-        return element_affine_matvec(self.ke_parts[u.dtype], self.lm, coeffs, u, self.ndof)
+        return self.element.affine(coeffs, u)
 
     def _cg_once(self, coeffs, b):
         """One PCG solve in the CG dtype, for the masked rhs b."""
@@ -304,11 +307,11 @@ def make_matfree_affine_solver(
 
     ke_parts (P, nele, edof, edof) element bases, lm (nele, edof), free_mask
     (ndof,) 0/1. ``solve(coeffs (B, P), f (B, ndof)) -> u (B, ndof)`` with
-    zeros on the fixed dofs. ``affine_matvec(coeffs, u) -> K(c) u`` replaces
-    the element gather/einsum/scatter for every application, float32 and
-    float64 (e.g. the stencil kernel, ``ops.stencil``); pass ``diag_parts``
-    (P, ndof) with it. ``preconditioner(coeffs, diag_inv, r) -> z`` replaces
-    Jacobi.
+    zeros on the fixed dofs. Without ``affine_matvec`` every application,
+    float32 and float64, is the element kernel (``ops.element_kernel``,
+    two parts); ``affine_matvec(coeffs, u) -> K(c) u`` replaces it (e.g. the
+    stencil kernel, ``ops.stencil``); pass ``diag_parts`` (P, ndof) with it.
+    ``preconditioner(coeffs, diag_inv, r) -> z`` replaces Jacobi.
 
     Mixed precision: ``cg_dtype=torch.float32`` runs the CG in float32 and
     ``refine_iters`` refinements, with residuals taken in float64

@@ -19,7 +19,12 @@ import torch
 from .config import MaterialCard, ProblemConfig
 from .model import FemModel
 from .ops.element import material_coeffs, stress6_3d, stress6_plane_strain
-from .ops.multigrid import make_grid_transfer_nd, make_two_level_preconditioner
+from .ops.multigrid import (
+    cooks_prolongation,
+    make_gather_transfer,
+    make_grid_transfer_nd,
+    make_two_level_preconditioner,
+)
 from .ops.solve import make_matfree_affine_solver, make_spectral_affine_solver
 from .ops.spectral_kernel import spectral_apply_batched
 from .ops.stencil import make_stencil_affine_matvec
@@ -37,11 +42,23 @@ class FemSolution:
     reactions: torch.Tensor  # (ndof,) support reactions (nonzero on supp dofs)
 
 
-def make_solver(model: FemModel, *, factor_dtype=None, refine_iters: int = 0) -> Callable:
-    """Build ``solve_free(c0 (B,), c1 (B,)) -> u (B, ndof)`` for this model
-    through the spectral pencil (``ops.solve``), the JAX package's default
-    method for dense models; ``factor_dtype`` selects the precision of its
-    apply."""
+def make_solver(model: FemModel, *, factor_dtype=None, refine_iters: int = 0,
+                cg_tol: float = 1e-12, cg_maxiter: int = 4000) -> Callable:
+    """Build ``solve_free(c0 (B,), c1 (B,)) -> u (B, ndof)`` for this model.
+
+    Dense models: the spectral pencil (``ops.solve``), the JAX package's
+    default method; ``factor_dtype`` selects the precision of its apply.
+    Matrix-free models: Jacobi-PCG on the element operator (the element
+    kernel on the GPU, ``ops.element_kernel``) at ``cg_tol`` and
+    ``cg_maxiter``; ``factor_dtype`` is the CG's dtype, and
+    ``refine_iters`` refinements with float64 residuals bring the answer
+    back to the model's. ``solve_free.solver`` is then the underlying
+    ``ops.solve.MatfreeAffineSolver``."""
+    if not model.dense:
+        base = make_matfree_affine_solver(
+            torch.stack([model.ke_lam, model.ke_mu]), model.lm, model.free_mask, model.ndof,
+            tol=cg_tol, maxiter=cg_maxiter, cg_dtype=factor_dtype, refine_iters=refine_iters)
+        return _matfree_solve_free(model, base)
     base = make_spectral_affine_solver(
         torch.stack([model.k_lam_ff, model.k_mu_ff]),
         apply_dtype=factor_dtype,
@@ -55,6 +72,20 @@ def make_solver(model: FemModel, *, factor_dtype=None, refine_iters: int = 0) ->
         # (the JAX package's Dirichlet lift) are not ported yet
         return embed(base(coeffs, model.f_free.expand(c0.shape[0], -1)))
 
+    return solve_free
+
+
+def _matfree_solve_free(model: FemModel, base) -> Callable:
+    """``solve_free(c0, c1)`` on a matrix-free solver ``base`` (full-dof
+    vectors), with ``solve_free.solver = base``."""
+    # the full-dof load on the free dofs; prescribed displacements (the JAX
+    # package's Dirichlet lift) are not ported, so it is constant
+    f_masked = model.f_ext * model.free_mask
+
+    def solve_free(c0, c1):
+        return base(torch.stack([c0, c1], dim=-1), f_masked.expand(c0.shape[0], -1))
+
+    solve_free.solver = base
     return solve_free
 
 
@@ -94,12 +125,17 @@ def recover_fields(model: FemModel, u, c0, c1) -> Tuple[torch.Tensor, torch.Tens
     return eps6, sig6
 
 
-def fea_solution(model: FemModel, material: MaterialCard = MaterialCard()) -> FemSolution:
-    """Full forward analysis for one material (reference ``fea_solution``)."""
+def fea_solution(model: FemModel, material: MaterialCard = MaterialCard(), *,
+                 solve_free: Optional[Callable] = None) -> FemSolution:
+    """Full forward analysis for one material (reference ``fea_solution``);
+    ``solve_free(c0 (B,), c1 (B,)) -> u (B, ndof)`` overrides
+    :func:`make_solver` (e.g. :func:`make_two_level_solver`)."""
     c0, c1 = material_coeffs(model.stype, material.E, material.v)
     c0 = torch.tensor([c0], dtype=model.dtype, device=model.device)
     c1 = torch.tensor([c1], dtype=model.dtype, device=model.device)
-    u = make_solver(model)(c0, c1)[0]
+    if solve_free is None:
+        solve_free = make_solver(model)
+    u = solve_free(c0, c1)[0]
     c0, c1 = c0[0], c1[0]
     eps6, sig6 = recover_fields(model, u, c0, c1)
     # support reactions = internal force on the supported dofs
@@ -213,29 +249,42 @@ def make_two_level_solver(
     backward pass; ``solve_free.solver`` is the underlying
     ``ops.solve.MatfreeAffineSolver`` (its ``last_cg_iters``).
 
-    The fine grid is (nx_coarse*ratio, ny_coarse*ratio). The CG runs in
-    structured-grid form: K(c) as the stencil kernel (``ops.stencil``), the
-    transfers as the 1-D hat products of ``ops.multigrid.
-    make_grid_transfer_nd`` on the (ny, nx) grid, the coarse solve through the spectral kernel
-    (:func:`make_coarse_spectral_apply`). ``cg_dtype``, ``refine_iters`` and
-    ``refine_residual`` ("f64" or "split_f32") are those of
-    ``ops.solve.make_matfree_affine_solver``.
+    The fine grid is (nx_coarse*ratio, ny_coarse*ratio); the coarse solve
+    runs through the spectral kernel (:func:`make_coarse_spectral_apply`).
+    With ``use_stencil=True`` the CG runs in structured-grid form: K(c) as
+    the stencil kernel (``ops.stencil``), the transfers as the 1-D hat
+    products of ``ops.multigrid.make_grid_transfer_nd`` on the (ny, nx)
+    grid. With ``use_stencil=False`` (the element path) K(c) is the element
+    kernel (``ops.element_kernel``) and the transfers are the gather
+    transfers of ``ops.multigrid.make_gather_transfer`` on the
+    :func:`ops.multigrid.cooks_prolongation` tables. ``cg_dtype``,
+    ``refine_iters`` and ``refine_residual`` ("f64" or "split_f32") are
+    those of ``ops.solve.make_matfree_affine_solver``.
 
-    Only the production settings are ported: ``use_stencil=True``,
-    ``cycle="additive"``, ``transfer="conv"``; the JAX package's other
-    options raise. Its ``coarse_f32_precision`` is not taken: the float32
-    coarse apply here is always full float32.
+    Only ``cycle="additive"`` and ``transfer="conv"`` are ported; the JAX
+    package's other options raise (a ``transfer`` other than "conv" on the
+    element path raises ``ValueError``, as there). Its
+    ``coarse_f32_precision`` is not taken: the float32 coarse apply here is
+    always full float32.
     """
-    if not use_stencil:
-        raise NotImplementedError("use_stencil=False (the element-path two-level solver) is "
-                                  "not ported; ROADMAP Queue 1 item 7")
+    if not use_stencil and transfer != "conv":
+        raise ValueError(f"transfer={transfer!r} needs use_stencil=True")
     if transfer != "conv":
         raise NotImplementedError(f"transfer={transfer!r} is not ported (only 'conv'); "
                                   "ROADMAP Queue 1 item 12")
     _check_two_level_options(cycle, with_rhs_solver)
-    affine, _, diag_parts = make_stencil_affine_matvec(model, nx_coarse * ratio,
-                                                       ny_coarse * ratio)
-    transfer_ops = make_grid_transfer_nd((ny_coarse, nx_coarse), ratio, 2, device=model.device)
+    if use_stencil:
+        affine, _, diag_parts = make_stencil_affine_matvec(model, nx_coarse * ratio,
+                                                           ny_coarse * ratio)
+        transfer_ops = make_grid_transfer_nd((ny_coarse, nx_coarse), ratio, 2,
+                                             device=model.device)
+    else:
+        if model.ndof != 2 * (nx_coarse * ratio + 1) * (ny_coarse * ratio + 1):
+            raise ValueError("model does not match the refined Cook's grid of the transfers")
+        # the matrix-free solver's own element operator and Jacobi diagonal
+        affine = diag_parts = None
+        transfer_ops = make_gather_transfer(*cooks_prolongation(nx_coarse, ny_coarse, ratio),
+                                            device=model.device)
     return _two_level_solve_free(model, coarse_model, affine, diag_parts, transfer_ops,
                                  cg_dtype=cg_dtype, refine_iters=refine_iters, tol=tol,
                                  maxiter=maxiter, omega=omega, refine_residual=refine_residual)
@@ -296,8 +345,8 @@ def _check_two_level_options(cycle, with_rhs_solver):
 
 def _two_level_solve_free(model, coarse_model, affine, diag_parts, transfer_ops, *, cg_dtype,
                           refine_iters, tol, maxiter, omega, refine_residual):
-    """The structured-grid two-level solve shared by the 2-D and 3-D
-    solvers: the additive preconditioner around the matrix-free CG."""
+    """The two-level solve shared by the 2-D (stencil and element path) and
+    3-D solvers: the additive preconditioner around the matrix-free CG."""
     prec = make_two_level_preconditioner(make_coarse_spectral_apply(coarse_model),
                                          model.free_mask, transfer_ops, omega=omega)
     base = make_matfree_affine_solver(
@@ -314,12 +363,4 @@ def _two_level_solve_free(model, coarse_model, affine, diag_parts, transfer_ops,
         diag_parts=diag_parts,
         refine_residual=refine_residual,
     )
-    # the full-dof load on the free dofs; prescribed displacements (the JAX
-    # package's Dirichlet lift) are not ported, so it is constant
-    f_masked = model.f_ext * model.free_mask
-
-    def solve_free(c0, c1):
-        return base(torch.stack([c0, c1], dim=-1), f_masked.expand(c0.shape[0], -1))
-
-    solve_free.solver = base
-    return solve_free
+    return _matfree_solve_free(model, base)
