@@ -31,10 +31,17 @@ before and read just after:
   the certified ROM inside the ELBO, the element-path two-level solver for
   its full-order spot check).
 
+- the stencil-kernel study (phases 24-27): the one-row stencil kernel's
+  rows-per-block option bitwise against it, the banded tensor-core stencil
+  in both precision modes against its plain version and the float64
+  stencil, the FMA-ceiling probe against its plain version, and
+  examples/stencil_kernel_study_torch.py's main at 160x80, B = 256.
+
 Prints one line per phase, the card's name and power limit, a JSON line with
 the kernels' records (each with its bound: the larger of the bytes it must
-move over 3.35 TB/s and its operations over 67 TFLOP/s in float32, the
-H100 SXM's data-sheet peaks) and, last, the ok line. Exits non-zero on any failure
+move over the HBM rate and its operations over the peak rate of the unit
+that runs them, the H100 SXM's data-sheet peaks of
+vbicm_tpu_torch/utils/roofline.py) and, last, the ok line. Exits non-zero on any failure
 and when no GPU is present.
 
     python3 chip_smoke.py
@@ -42,7 +49,6 @@ and when no GPU is present.
 import json
 import math
 import os
-import subprocess
 import sys
 import time
 
@@ -84,9 +90,18 @@ ELEMENT_MESHES = [("8x4", lambda m: m.cooks_membrane_mesh(8, 4), False),
                    lambda m: m.renumber_mesh(m.cooks_membrane_mesh(20, 10), seed=3), False),
                   ("4x2x2", lambda m: m.beam_hex8_mesh(4, 2, 2), True),
                   ("32x8x8", lambda m: m.beam_hex8_mesh(32, 8, 8), True)]
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
-# outside the tensor cores, H100 SXM data sheet
-PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
+# the study path (phases 24-27): rows_per_block values held bitwise against
+# the one-row kernel (2 and 4 do not divide NY = 81, 8 divides none of the
+# grids' NY), and the probe's (B, NY, XLP) shapes
+ROWS_PER_BLOCK = (2, 3, 4, 8)
+PROBE_SHAPES = [(1, 3, 128), (5, 7, 128), (300, 17, 256), (256, 81, 384)]
+PROBE_MAIN = (256, 81, 384)  # the study's: B = 256, NY = 81, XLP = 384
+# kernel #6 against its plain version, of max|q|: the same products (bf16x3)
+# or 3xTF32 against full float32 products (f32), summed in another order;
+# a CPU emulation of 3xTF32 at 160x80 is 1.8e-7 from the plain version.
+# Against the float64 stencil: tests/test_pallas.py's bounds.
+MXU_TOL_PLAIN = 5e-6
+MXU_TOL_EXACT = {"f32": 5e-6, "bf16x3": 5e-5}
 
 
 def fail(msg):
@@ -98,12 +113,16 @@ def rel_err(got, want):
     return float((got - want).abs().max() / want.abs().max())
 
 
-def least_time(nbytes, flops, dtype=torch.float32):
-    """(bound_ms, bound_by): the least time for the work on an H100, the
-    larger of bytes over the HBM rate and operations over the peak rate."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+def least_time(nbytes, flops, dtype=torch.float32, unit=None):
+    """(bound_ms, bound_by): the least time for the work on the card, the
+    larger of bytes over the HBM rate and operations over the peak rate of
+    ``unit`` (default: the CUDA cores in ``dtype``), from the data-sheet
+    peaks of vbicm_tpu_torch/utils/roofline.py."""
+    from vbicm_tpu_torch.utils.roofline import least_time_s
+
+    unit = unit or {torch.float32: "fp32", torch.float64: "fp64"}[dtype]
+    seconds, by = least_time_s(nbytes, flops, unit, torch.device("cuda", 0))
+    return seconds * 1e3, by
 
 
 def stencil_least_time(planes, c, u):
@@ -141,14 +160,6 @@ def library_affine(K, c, uT):
     return torch.sparse.mm(K[0], uT) * c[:, 0] + torch.sparse.mm(K[1], uT) * c[:, 1]
 
 
-def card_line():
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip()
-    return out.splitlines()[0]
-
-
 def pencil_problem(B, n, seed, dtype, device):
     """An orthonormal eigenbasis, positive eigenvalues and coefficients."""
     rng = np.random.default_rng(seed)
@@ -160,17 +171,27 @@ def pencil_problem(B, n, seed, dtype, device):
 
 
 def time_ms(fn, warmup=20, reps=200):
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
+    """ms a call of ``fn`` on the card: CUDA events around ``reps`` calls
+    after ``warmup``."""
+    from vbicm_tpu_torch.utils.timing import benchmark_fn
+
+    res = benchmark_fn(fn, iters=reps, warmup=warmup, device=torch.device("cuda", 0))
+    return res["mean_s"] * 1e3
+
+
+def wall_s(fn, reps, warmup=1):
+    """Host wall seconds a call of ``fn`` under no_grad (for solves that
+    synchronise with the host themselves), the card synchronised around the
+    ``reps`` calls that follow ``warmup``."""
+    from vbicm_tpu_torch.utils.timing import Timer
+
+    with torch.no_grad():
+        for _ in range(warmup):
+            fn()
+        with Timer(torch.device("cuda", 0)) as t:
+            for _ in range(reps):
+                fn()
+    return t.seconds / reps
 
 
 def main():
@@ -190,6 +211,7 @@ def main():
     )
     from vbicm_tpu_torch.prob.datagen import generate_data_fem
     from vbicm_tpu_torch.solver import fea_solution, make_fh_fun, probe_von_mises
+    from vbicm_tpu_torch.utils.timing import card_line
     from vbicm_tpu_torch.vi.train import TwoStepTrainer
 
     dev = torch.device("cuda", 0)
@@ -318,6 +340,7 @@ def main():
     scaled = scaled_path(dev, card)
     box = box3d_path(dev, card)
     elem = element_path(dev, card)
+    study = study_path(dev, card)
 
     def spectral_bound(B, n):  # V, Vt, g, coeffs, b read; x, a written (f32)
         return least_time(4 * (2 * n * n + n + 2 * B + 3 * B * n), 4 * B * n * n + 3 * B * n)
@@ -350,8 +373,9 @@ def main():
         "route": "cuda",
         "source": "vbicm_tpu_torch/csrc/stencil_affine.cu",
         "replaces": "vbicm_tpu/ops/stencil_pallas.py:71",
-        "launches": scaled["stencil_launches"],
-        "launches_by_path": {"scaled_160x80": scaled["stencil_launches"]},
+        "launches": scaled["stencil_launches"] + study["onerow_launches"],
+        "launches_by_path": {"scaled_160x80": scaled["stencil_launches"],
+                             "stencil_study_160x80": study["onerow_launches"]},
         "max_abs_err": scaled["stencil_abs_err"],
         "ms": scaled["stencil_ms"][torch.float32][0],
         "plain_ms": scaled["stencil_ms"][torch.float32][1],
@@ -390,6 +414,71 @@ def main():
         "library_ms": elem["element_ms"][torch.float32][2],
         "ms_f64": elem["element_ms"][torch.float64][0],
         "bound_ms_f64": elem["element_ms"][torch.float64][3][0],
+    }]
+    f32, f64 = torch.float32, torch.float64
+    rows32, rows64 = study["rows_ms"][f32], study["rows_ms"][f64]
+    mxu = study["mxu_ms"]
+    probe = study["probe_ms"]
+    records += [{
+        "name": "stencil_affine_matvec_rows",
+        "route": "cuda",
+        "source": "vbicm_tpu_torch/csrc/stencil_affine.cu",
+        "replaces": "vbicm_tpu/ops/stencil_pallas.py:159",
+        "launches": study["rows_launches"],
+        "launches_by_path": {"stencil_study_160x80": study["rows_launches"]},
+        "max_abs_err": study["rows_abs_err"],
+        "rows_per_block": 3,
+        "ms": rows32[0][3],
+        "plain_ms": rows32[1],
+        "bound_ms": study["stencil_bound"][0],
+        "bound_by": study["stencil_bound"][1],
+        "library_ms": scaled["stencil_ms"][f32][2],  # #2's function: phase 12's cuSPARSE pair
+        "ms_rows_per_block_8": rows32[0][8],
+        "ms_one_row_same_call": rows32[0][1],
+        "ms_f64": rows64[0][3],
+        "ms_f64_rows_per_block_8": rows64[0][8],
+    }, {
+        "name": "stencil_affine_matvec_mxu",
+        "route": "cuda",
+        "source": "vbicm_tpu_torch/csrc/stencil_mxu.cu",
+        "replaces": "vbicm_tpu/ops/stencil_mxu.py:116",
+        "launches": study["mxu_launches"],
+        "launches_by_path": {"stencil_study_160x80": study["mxu_launches"]},
+        "mode": "bf16x3",
+        "max_abs_err": study["mxu_abs_err"]["bf16x3"],
+        "ms": mxu["bf16x3"][0],
+        "plain_ms": mxu["bf16x3"][1],
+        "bound_ms": study["stencil_bound"][0],  # the function's (kernel #2's)
+        "bound_by": study["stencil_bound"][1],
+        "library_ms": scaled["stencil_ms"][f32][2],
+        "bound_ms_densified": mxu["bf16x3"][2][0],
+        "bound_by_densified": mxu["bf16x3"][2][1],
+        "ms_f32": mxu["f32"][0],
+        "plain_ms_f32": mxu["f32"][1],
+        "max_abs_err_f32": study["mxu_abs_err"]["f32"],
+        "bound_ms_densified_f32": mxu["f32"][2][0],
+        "bound_by_densified_f32": mxu["f32"][2][1],
+    }, {
+        "name": "fma_peak_probe",
+        "route": "cuda",
+        "source": "vbicm_tpu_torch/csrc/fma_probe.cu",
+        "replaces": "examples/stencil_kernel_study.py:52",
+        "launches": study["probe_launches"],
+        "launches_by_path": {"stencil_study_160x80": study["probe_launches"]},
+        "max_abs_err": study["probe_abs_err"],
+        "nfma": 42,
+        "ms": probe["fp32", 42][0],
+        "plain_ms": probe["fp32", 42][1],
+        "bound_ms": probe["fp32", 42][2][0],
+        "bound_by": probe["fp32", 42][2][1],
+        "library_ms": None,  # no PyTorch call computes the chain
+        "ms_nfma4096": probe["fp32", 4096][0],
+        "tflops_nfma4096": probe["fp32", 4096][3],
+        "bound_ms_nfma4096": probe["fp32", 4096][2][0],
+        "bound_by_nfma4096": probe["fp32", 4096][2][1],
+        "ms_f64_nfma4096": probe["fp64", 4096][0],
+        "tflops_f64_nfma4096": probe["fp64", 4096][3],
+        "bound_ms_f64_nfma4096": probe["fp64", 4096][2][0],
     }]
     print(card)
     print(json.dumps({"kernels": records}))
@@ -554,14 +643,7 @@ def scaled_path(dev, card):
     thetas = torch.randn((256, 2), generator=torch.Generator().manual_seed(5),
                          dtype=torch.float64).to(dev)
     for residual in ("f64", "split_f32"):
-        with torch.no_grad():
-            fhs[residual](thetas)
-            torch.cuda.synchronize()
-            tic = time.perf_counter()
-            for _ in range(3):
-                fhs[residual](thetas)
-            torch.cuda.synchronize()
-        dt = (time.perf_counter() - tic) / 3
+        dt = wall_s(lambda: fhs[residual](thetas), 3)
         its = torch.stack(solvers[residual].solver.last_cg_iters).double()
         print(f"[12 times] two-level fh (160x80, B=256, f32 CG + 1 {residual} refinement): "
               f"{256 / dt:.1f} solves/s ({dt * 1e3:.1f} ms a batch); CG iterations per solve "
@@ -791,14 +873,7 @@ def element_path(dev, card):
     saved = (element_affine_matvec_kernel.launches, spectral_apply_batched.launches)
     for use_stencil in (False, True):
         fh, solve = paths[use_stencil]["fh"], paths[use_stencil]["solve"]
-        with torch.no_grad():
-            fh(th)
-            torch.cuda.synchronize()
-            tic = time.perf_counter()
-            for _ in range(3):
-                fh(th)
-            torch.cuda.synchronize()
-        dt = (time.perf_counter() - tic) / 3
+        dt = wall_s(lambda: fh(th), 3)
         its = torch.stack(solve.solver.last_cg_iters).double()
         run_iters = float(its.max(1).values.sum())  # the batch runs until its slowest lane stops
         print(f"[23 times] {'stencil' if use_stencil else 'element'}-path two-level fh (160x80, "
@@ -806,18 +881,240 @@ def element_path(dev, card):
               f"batch, {dt * 1e3 / run_iters:.3f} ms per CG iteration over {run_iters:.0f}); CG "
               f"iterations per solve (first CG, refinement CG) mean {its.mean(1).tolist()}, max "
               f"{its.max(1).values.tolist()}, on {card}", flush=True)
-    with torch.no_grad():
-        for _ in range(5):
-            fh_rom(th)
-        torch.cuda.synchronize()
-        tic = time.perf_counter()
-        for _ in range(100):
-            fh_rom(th)
-        torch.cuda.synchronize()
-    dt = (time.perf_counter() - tic) / 100
+    dt = wall_s(lambda: fh_rom(th), 100, warmup=5)
     print(f"[23 times] ROM fh (160x80, r={rb.r}, B=256): {256 / dt:.0f} solves/s "
           f"({dt * 1e3:.3f} ms a batch), on {card}", flush=True)
     element_affine_matvec_kernel.launches, spectral_apply_batched.launches = saved
+    return out
+
+
+def study_path(dev, card):
+    """Phases 24-27: the stencil-kernel study (kernels #3, #6 and #7, and
+    examples/stencil_kernel_study_torch.py at 160x80, B = 256)."""
+    import importlib.util
+    import tempfile
+
+    from vbicm_tpu_torch.mesh import cooks_membrane_mesh
+    from vbicm_tpu_torch.model import build_fem_model
+    from vbicm_tpu_torch.ops.peak_probe import (
+        fma_peak_probe,
+        fma_peak_probe_reference,
+        fma_probe_flops,
+    )
+    from vbicm_tpu_torch.ops.stencil import StencilOperator, build_stencil_tables
+    from vbicm_tpu_torch.ops.stencil_kernel import stencil_affine_matvec, stencil_affine_reference
+    from vbicm_tpu_torch.ops.stencil_mxu import (
+        KDIM,
+        MODES,
+        n_tiles,
+        pack_w_bands,
+        stencil_affine_matvec_mxu,
+        stencil_affine_mxu_reference,
+    )
+
+    out = {}
+    f32, f64 = torch.float32, torch.float64
+    # 24. the rows-per-block option against the plain version (REL_TOL) and
+    #     bitwise against the one-row kernel, on the same inputs
+    saved = (stencil_affine_matvec.launches, stencil_affine_matvec.rows_launches)
+    stencil_affine_matvec.rows_launches = 0
+    ops, tables, worst = {}, {}, {}
+    for nx, ny in STENCIL_GRIDS:
+        model = build_fem_model(cooks_membrane_mesh(nx, ny), device=dev, dense=False)
+        W = build_stencil_tables(model, nx, ny)
+        ops[nx, ny] = op = StencilOperator(model, nx, ny, W=W)
+        tables[nx, ny] = W
+        for B in STENCIL_BATCHES:
+            rng = np.random.default_rng(B + nx + 24)
+            u64 = torch.as_tensor(rng.normal(size=(B, model.ndof)), device=dev)
+            c64 = torch.as_tensor(rng.uniform(1.0, 3.0, (B, 2)), device=dev)
+            for dtype in (f32, f64):
+                u, c = u64.to(dtype), c64.to(dtype)
+                qp = stencil_affine_reference(op.W[dtype], c, u)
+                q1 = op.affine(c, u)
+                for rpp in ROWS_PER_BLOCK:
+                    qr = op.affine(c, u, rows_per_block=rpp)
+                    torch.cuda.synchronize()
+                    err = rel_err(qr, qp)
+                    if not err <= REL_TOL[dtype]:
+                        fail(f"rows_per_block={rpp} vs plain at {nx}x{ny} B={B} {dtype}: "
+                             f"rel err {err}")
+                    if not torch.equal(q1, qr):
+                        fail(f"rows_per_block={rpp} vs one-row kernel at {nx}x{ny} B={B} {dtype}: "
+                             f"max abs diff {float((q1 - qr).abs().max())}")
+                    worst[dtype] = max(worst.get(dtype, 0.0), err)
+                    if (nx, B, rpp) == (*STENCIL_MAIN, 3) and dtype == f32:
+                        out["rows_abs_err"] = float((qr - qp).abs().max())
+            if (nx, B) == STENCIL_MAIN:
+                main_case = (c64, u64)
+    rows_checked = stencil_affine_matvec.rows_launches
+    if rows_checked <= 0:
+        fail("phase 24 launched the rows-per-block kernel no time")
+    print(f"[24 rows-per-block] ok: max rel err vs plain f32 {worst[f32]:.3e} (tol 2e-5), f64 "
+          f"{worst[f64]:.3e} (tol 1e-12), and bitwise equal to the one-row kernel, over grids "
+          f"{STENCIL_GRIDS} x B in {STENCIL_BATCHES} x rows_per_block in {ROWS_PER_BLOCK} "
+          f"({rows_checked} launches)", flush=True)
+    op = ops[STENCIL_MAIN[0], STENCIL_MAIN[0] // 2]
+    c64, u64 = main_case
+    out["rows_ms"], out["stencil_bound"] = {}, {}
+    for dtype in (f32, f64):
+        u, c = u64.to(dtype), c64.to(dtype)
+        if dtype == f32:
+            out["stencil_bound"] = stencil_least_time(op.planes[dtype], c, u)
+        times = {rpp: time_ms(lambda rpp=rpp: op.affine(c, u, rows_per_block=rpp))
+                 for rpp in (1, 3, 8, 1)}  # one-row timed first and last
+        p_ms = time_ms(lambda: stencil_affine_reference(op.W[dtype], c, u), warmup=5, reps=50)
+        out["rows_ms"][dtype] = (times, p_ms)
+        print(f"[24 times] stencil matvec (B=256, 160x80) {dtype}: rows_per_block 3 "
+              f"{times[3]:.4f} ms, 8 {times[8]:.4f} ms, one-row {times[1]:.4f} ms, plain "
+              f"{p_ms:.4f} ms; bound {out['stencil_bound'][0]:.4f} ms "
+              f"({out['stencil_bound'][1]}, f32), on {card}", flush=True)
+    stencil_affine_matvec.launches, stencil_affine_matvec.rows_launches = saved
+
+    # 25. the banded tensor-core kernel against its plain version and the
+    #     float64 stencil, both modes
+    saved = stencil_affine_matvec_mxu.launches
+    worst = {}
+    for (nx, ny), W in tables.items():
+        NY, NX = ny + 1, nx + 1
+        m_all = {"f32": pack_w_bands(W, "f32").to(dev),
+                 "bf16x3": tuple(m.to(dev) for m in pack_w_bands(W, "bf16x3"))}
+        for B in STENCIL_BATCHES:
+            rng = np.random.default_rng(B + nx + 25)
+            u64 = torch.as_tensor(rng.normal(size=(B, 2 * NY * NX)), device=dev)
+            c64 = torch.as_tensor(rng.uniform(1.0, 3.0, (B, 2)), device=dev)
+            q64 = stencil_affine_reference(ops[nx, ny].W[f64], c64, u64)
+            u, c = u64.to(f32), c64.to(f32)
+            for mode in MODES:
+                q = stencil_affine_matvec_mxu(m_all[mode], c, u, NY, NX, mode)
+                qp = stencil_affine_mxu_reference(m_all[mode], c, u, NY, NX, mode)
+                torch.cuda.synchronize()
+                errs = (rel_err(q, qp), rel_err(q.to(f64), q64))
+                if not (errs[0] <= MXU_TOL_PLAIN and errs[1] <= MXU_TOL_EXACT[mode]):
+                    fail(f"banded kernel {mode} at {nx}x{ny} B={B}: rel err (of max|q|) vs plain "
+                         f"{errs[0]}, vs f64 {errs[1]}; bounds {MXU_TOL_PLAIN}, "
+                         f"{MXU_TOL_EXACT[mode]}")
+                w = worst.setdefault(mode, [0.0, 0.0])
+                w[0], w[1] = max(w[0], errs[0]), max(w[1], errs[1])
+                if (nx, B) == STENCIL_MAIN:
+                    out.setdefault("mxu_abs_err", {})[mode] = float((q - qp).abs().max())
+        if (nx, ny) == (STENCIL_MAIN[0], STENCIL_MAIN[0] // 2):
+            main_tables = m_all
+        del m_all
+    if stencil_affine_matvec_mxu.launches - saved <= 0:
+        fail("phase 25 launched the banded kernel no time")
+    print(f"[25 banded] ok: rel err (of max|q|) vs plain / vs f64 stencil: f32 (3xTF32) "
+          f"{worst['f32'][0]:.3e} / {worst['f32'][1]:.3e}, bf16x3 {worst['bf16x3'][0]:.3e} / "
+          f"{worst['bf16x3'][1]:.3e} (tol {MXU_TOL_PLAIN:g} / {MXU_TOL_EXACT}) over grids "
+          f"{STENCIL_GRIDS} (T = 1, 1, 3) x B in {STENCIL_BATCHES}", flush=True)
+    c64, u64 = main_case
+    u, c = u64.to(f32), c64.to(f32)
+    NY, NX = STENCIL_MAIN[0] // 2 + 1, STENCIL_MAIN[0] + 1
+    dense_flops = 3 * 2.0 * u.shape[0] * KDIM * 256 * NY * n_tiles(NX)
+    out["mxu_ms"] = {}
+    for mode, unit in (("bf16x3", "bf16_tc"), ("f32", "tf32_tc")):
+        mb = main_tables[mode]
+        k_ms = time_ms(lambda: stencil_affine_matvec_mxu(mb, c, u, NY, NX, mode), reps=100)
+        p_ms = time_ms(lambda: stencil_affine_mxu_reference(mb, c, u, NY, NX, mode), warmup=3,
+                       reps=20)
+        tbytes = sum(t.numel() * t.element_size() for t in (mb if mode == "bf16x3" else (mb,)))
+        own = least_time(tbytes + 2 * u.numel() * 4 + c.numel() * 4, dense_flops, unit=unit)
+        out["mxu_ms"][mode] = (k_ms, p_ms, own)
+        print(f"[25 times] banded stencil (B=256, 160x80) {mode}: kernel {k_ms:.4f} ms, plain "
+              f"{p_ms:.4f} ms; densified bound {own[0]:.4f} ms ({own[1]}: {tbytes / 1e6:.1f} MB "
+              f"of tables, {dense_flops / 1e9:.2f} GFLOP on {unit}), the function's bound "
+              f"{out['stencil_bound'][0]:.4f} ms, on {card}", flush=True)
+    del main_tables
+    stencil_affine_matvec_mxu.launches = saved
+
+    # 26. the FMA-ceiling probe against its plain version, inputs in
+    #     (-0.9, 0.9) so that the chain stays bounded; the kernel contracts
+    #     each step to one FMA, the plain version rounds twice
+    saved = fma_peak_probe.launches
+    worst = {}
+    for B, NY, XLP in PROBE_SHAPES:
+        g = torch.Generator().manual_seed(B + NY)
+        a64 = (torch.rand((B, NY * XLP), generator=g, dtype=f64) * 1.8 - 0.9).to(dev)
+        b64 = (torch.rand((B, XLP), generator=g, dtype=f64) * 1.8 - 0.9).to(dev)
+        for dtype in (f32, f64):
+            a, b = a64.to(dtype), b64.to(dtype)
+            for nfma in (0, 5, 42):
+                o = fma_peak_probe(a, b, nfma)
+                r = fma_peak_probe_reference(a, b, nfma)
+                torch.cuda.synchronize()
+                err = rel_err(o, r)
+                if not err <= REL_TOL[dtype]:
+                    fail(f"probe vs plain at {(B, NY, XLP)} nfma={nfma} {dtype}: rel err {err}")
+                worst[dtype] = max(worst.get(dtype, 0.0), err)
+                if (B, NY, XLP) == PROBE_MAIN and dtype == f32 and nfma == 42:
+                    out["probe_abs_err"] = float((o - r).abs().max())
+            if (B, NY, XLP) == PROBE_MAIN:
+                probe_case = (a64, b64)
+    if fma_peak_probe.launches - saved <= 0:
+        fail("phase 26 launched the probe no time")
+    print(f"[26 probe] ok: max rel err vs plain (of max|out|) f32 {worst[f32]:.3e} (tol 2e-5), "
+          f"f64 {worst[f64]:.3e} (tol 1e-12) over (B, NY, XLP) in {PROBE_SHAPES} x nfma in "
+          f"(0, 5, 42)", flush=True)
+    a64, b64 = probe_case
+    out["probe_ms"] = {}
+    for dtype, unit in ((f32, "fp32"), (f64, "fp64")):
+        a, b = a64.to(dtype), b64.to(dtype)
+        nbytes = (2 * a.numel() + b.numel()) * a.element_size()
+        for nfma in (42, 4096):
+            flops = fma_probe_flops(*PROBE_MAIN, nfma)
+            k_ms = time_ms(lambda: fma_peak_probe(a, b, nfma), warmup=5, reps=50)
+            p_ms = (time_ms(lambda: fma_peak_probe_reference(a, b, nfma), warmup=2, reps=10)
+                    if nfma == 42 else None)
+            bound = least_time(nbytes, flops, dtype)
+            out["probe_ms"][unit, nfma] = (k_ms, p_ms, bound, flops / k_ms / 1e9)
+            print(f"[26 times] probe {PROBE_MAIN} {dtype} nfma {nfma}: kernel {k_ms:.4f} ms "
+                  f"({flops / k_ms / 1e9:.2f} TFLOP/s), plain "
+                  f"{'not timed' if p_ms is None else f'{p_ms:.4f} ms'}; bound {bound[0]:.4f} ms "
+                  f"({bound[1]}), on {card}", flush=True)
+    fma_peak_probe.launches = saved
+
+    # 27. the main path: examples/stencil_kernel_study_torch.py at 160x80,
+    #     B = 256, into a temporary results directory
+    spec = importlib.util.spec_from_file_location(
+        "stencil_kernel_study_torch", os.path.join(ROOT, "examples", "stencil_kernel_study_torch.py"))
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    counters = (stencil_affine_matvec, "launches"), (stencil_affine_matvec, "rows_launches"), \
+        (stencil_affine_matvec_mxu, "launches"), (fma_peak_probe, "launches")
+    saved = [getattr(f, k) for f, k in counters]
+    for f, k in counters:
+        setattr(f, k, 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        summary = example.main(["--device", "cuda", "--results", tmp, "--reps", "20"])
+        torch.cuda.synchronize()
+        with open(os.path.join(tmp, "summary.json")) as fh:
+            if json.load(fh)["verdict"] != json.loads(json.dumps(summary["verdict"])):
+                fail("the study's summary.json does not hold its verdict")
+    (out["onerow_launches"], out["rows_launches"], out["mxu_launches"],
+     out["probe_launches"]) = (getattr(f, k) for f, k in counters)
+    for (f, k), v in zip(counters, saved):
+        setattr(f, k, v)
+    if min(out["rows_launches"], out["mxu_launches"], out["probe_launches"]) <= 0:
+        fail(f"the study launched rows-per-block {out['rows_launches']}, banded "
+             f"{out['mxu_launches']}, probe {out['probe_launches']} times; all must be > 0")
+    for key, rec in summary["impls"].items():
+        bound = 5e-5 if key == "mxu_bf16x3" else 5e-6
+        if not (math.isfinite(rec["ms"]) and rec["rel_err_vs_f64"] <= bound):
+            fail(f"study {key}: {rec['ms']} ms, rel err (of norms) vs f64 {rec['rel_err_vs_f64']} "
+                 f"> {bound}")
+        print(f"[27 study] {key}: {rec['ms']:.4f} ms, rel err (of norms) vs f64 "
+              f"{rec['rel_err_vs_f64']:.2e} (tol {bound:g}), {rec['band_tflops']:.3f} band TFLOP/s, "
+              f"hbm share {rec.get('hbm_utilization')}, on {card}", flush=True)
+    v = summary["verdict"]
+    print(f"[27 study] ok: FMA ceilings {summary['fma_ceiling_tflops']} TFLOP/s; ridge "
+          f"{v['ridge_flops_per_byte_measured_fp32']:.2f} flops/byte measured "
+          f"({v['ridge_flops_per_byte_datasheet_fp32']:.1f} data sheet), stencil intensity "
+          f"{v['stencil_band_intensity_flops_per_byte']:.2f}: bound by {v['stencil_bound_by']}; "
+          f"fastest {v['fastest']}, banded beats one-row: {v['banded_beats_onerow']}; kernel "
+          f"launches one-row {out['onerow_launches']}, rows {out['rows_launches']}, banded "
+          f"{out['mxu_launches']}, probe {out['probe_launches']}; verdict {json.dumps(v['impls'])}",
+          flush=True)
+    out["study"] = summary
     return out
 
 
@@ -1037,14 +1334,7 @@ def box3d_path(dev, card):
     for B in BOX_FH_BATCHES:
         th = torch.randn((B, 2), generator=torch.Generator().manual_seed(5),
                          dtype=torch.float64).to(dev)
-        with torch.no_grad():
-            fh(th)
-            torch.cuda.synchronize()
-            tic = time.perf_counter()
-            for _ in range(3):
-                fh(th)
-            torch.cuda.synchronize()
-        dt = (time.perf_counter() - tic) / 3
+        dt = wall_s(lambda: fh(th), 3)
         its = torch.stack(solve.solver.last_cg_iters).double()
         share = ""
         if B == BOX_FH_BATCHES[-1]:

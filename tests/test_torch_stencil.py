@@ -17,11 +17,15 @@ from vbicm_tpu.model import build_fem_model as jax_build_fem_model
 from vbicm_tpu.ops.stencil import build_stencil_tables as jax_build_stencil_tables
 from vbicm_tpu.ops.stencil import make_stencil_part_matvec as jax_make_stencil_part_matvec
 from vbicm_tpu.ops.stencil_pallas import pack_w_interleaved as jax_pack_w_interleaved
-from vbicm_tpu.ops.stencil_pallas import stencil_affine_matvec_pallas
+from vbicm_tpu.ops.stencil_pallas import (
+    stencil_affine_matvec_pallas,
+    stencil_affine_matvec_pallas_mr,
+)
 from vbicm_tpu_torch.mesh import cooks_membrane_mesh
 from vbicm_tpu_torch.model import build_fem_model
 from vbicm_tpu_torch.ops.assembly import element_affine_matvec, element_matvec
 from vbicm_tpu_torch.ops.stencil import (
+    StencilOperator,
     build_stencil_tables,
     make_stencil_affine_matvec,
     make_stencil_part_matvec,
@@ -164,3 +168,43 @@ def test_sample_tile_fits_shared_memory():
     assert sample_tile(2000, 256, 8) == 4
     with pytest.raises(ValueError):
         sample_tile(10000, 1, 8)
+
+
+@pytest.mark.parametrize("rows,itemsize,tile", [(1, 8, 8), (3, 4, 8), (8, 8, 8), (10, 8, 7),
+                                                (40, 8, 2)])
+def test_sample_tile_of_the_rows_per_block_option(rows, itemsize, tile):
+    # 160x80: 8 rows a block in float64 stage 8 x 10 x 328 values, 210 KB
+    # of the 227 KB; at 10 rows the tile shrinks
+    assert sample_tile(322, 256, itemsize, rows) == tile
+    assert tile * ((rows + 2) * 328 + 2) * itemsize <= 232448
+
+
+@pytest.mark.parametrize("rpp", [3, 4])
+def test_rows_per_block_on_cpu_matches_pallas_multirow_interpret(rpp):
+    """NY + 1 = 5 grid rows: neither 3 nor 4 divides them (the JAX test's
+    case, tests/test_stencil.py)."""
+    nx, ny = 8, 4
+    jmodel = jax_build_fem_model(jax_cooks_mesh(nx, ny), dense=False)
+    model = build_fem_model(cooks_membrane_mesh(nx, ny), device="cpu", dense=False)
+    W = jax_build_stencil_tables(jmodel, nx, ny)
+    coeffs, u = _inputs(4, model.ndof, seed=rpp)
+    want = np.asarray(stencil_affine_matvec_pallas_mr(
+        jnp.asarray(jax_pack_w_interleaved(W)), jnp.asarray(coeffs, jnp.float32),
+        jnp.asarray(u, jnp.float32), NY=ny + 1, NX=nx + 1, rows_per_program=rpp,
+        interpret=True))
+    op = StencilOperator(model, nx, ny, W=W)
+    c, ut = torch.as_tensor(coeffs, dtype=torch.float32), torch.as_tensor(u, dtype=torch.float32)
+    q = op.affine(c, ut, rows_per_block=rpp)
+    assert torch.equal(q, op.affine(c, ut))  # the option computes the one-row function
+    # 3e-6 x max|q|, as the one-row case above: float32 sums in other orders
+    np.testing.assert_allclose(q.numpy(), want, atol=3e-6 * np.abs(want).max())
+    assert stencil_affine_matvec.launches == stencil_affine_matvec.rows_launches == 0
+
+
+@pytest.mark.parametrize("rows", [0, -1, 2.0])
+def test_rows_per_block_must_be_a_positive_int(rows):
+    model = build_fem_model(cooks_membrane_mesh(8, 4), device="cpu")
+    W = torch.as_tensor(build_stencil_tables(model, 8, 4))
+    coeffs, u = (torch.as_tensor(a) for a in _inputs(2, model.ndof, seed=1))
+    with pytest.raises(ValueError):
+        stencil_affine_matvec(W, None, coeffs, u, rows_per_block=rows)

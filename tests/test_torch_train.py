@@ -114,6 +114,7 @@ def test_port_sources_import_no_jax():
              os.path.join(ROOT, "examples", "train_scaled_fullorder_torch.py"),
              os.path.join(ROOT, "examples", "train_scaled_3d_torch.py"),
              os.path.join(ROOT, "examples", "train_scaled_rom_torch.py"),
+             os.path.join(ROOT, "examples", "stencil_kernel_study_torch.py"),
              os.path.join(ROOT, "tools", "profile_scaled_torch.py")]
     for m in pkgutil.walk_packages(vbicm_tpu_torch.__path__, "vbicm_tpu_torch."):
         files.append(importlib.util.find_spec(m.name).origin)

@@ -31,8 +31,6 @@ import argparse
 import collections
 import dataclasses
 import json
-import os
-import subprocess
 import time
 
 import numpy as np
@@ -187,11 +185,12 @@ def main():
 
     import torch
 
+    from vbicm_tpu_torch.utils.timing import card_line, profile_trace
+
     if not torch.cuda.is_available():
         raise SystemExit("no GPU is available (torch.cuda.is_available() is False)")
     dev = torch.device("cuda", 0)
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    card = card_line()
     print(card, flush=True)
     residual = "split_f32" if args.split_f32 else "f64"
     make = {"160x80": cooks_step, "box3d": box3d_step, "box3d_fh": box3d_fh,
@@ -209,8 +208,7 @@ def main():
     untraced = (time.perf_counter() - tic) / args.steps
     print(f"untraced step: {untraced * 1e3:.1f} ms ({1 / untraced:.3f} steps/s)", flush=True)
 
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    with profile_trace(args.trace) as prof:
         torch.cuda.synchronize()
         tic = time.perf_counter()
         for _ in range(args.steps):
@@ -243,9 +241,6 @@ def main():
         top[ev.name[:90]] += ev.time_range.elapsed_us()
     for name, us in sorted(top.items(), key=lambda kv: -kv[1])[:12]:
         print(f"  {us / 1e3:9.2f} ms  {name}")
-    if args.trace:
-        os.makedirs(os.path.dirname(os.path.abspath(args.trace)), exist_ok=True)
-        prof.export_chrome_trace(args.trace)
 
 
 if __name__ == "__main__":

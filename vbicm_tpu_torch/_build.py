@@ -1,7 +1,9 @@
 """Build and load the package's CUDA kernels.
 
-The sources under ``csrc/`` (the spectral apply, the 2-D and 3-D stencil
-matvecs and the element matvec) have a plain C interface. At first use each
+The sources under ``csrc/`` (the spectral apply, the 2-D stencil matvec
+with its rows-per-block option, the banded tensor-core stencil, the 3-D
+stencil matvec, the element matvec and the FMA-ceiling probe) have a plain
+C interface. At first use each
 is compiled with ``nvcc`` for ``sm_90a``, all at once in parallel
 processes, and the objects are linked into one shared library under
 ``build/vbicm_tpu_torch/`` at the root of the checkout, loaded with
@@ -36,6 +38,16 @@ _SIGNATURES = {
     # (w, coeffs, u, q, B, NY, NX2, TS, threads, stream) -> cudaError_t
     "vbicm_stencil_affine_f32": [_PTR] * 4 + [_INT] * 5 + [_PTR],
     "vbicm_stencil_affine_f64": [_PTR] * 4 + [_INT] * 5 + [_PTR],
+    # (w, coeffs, u, q, B, NY, NX2, TS, RPP, threads, stream) -> cudaError_t
+    "vbicm_stencil_affine_rows_f32": [_PTR] * 4 + [_INT] * 6 + [_PTR],
+    "vbicm_stencil_affine_rows_f64": [_PTR] * 4 + [_INT] * 6 + [_PTR],
+    # (m_hi, m_lo, coeffs, u, q, B, NY, NX2, stream) -> cudaError_t; the
+    # float32 table's entry point takes its one table as m_hi
+    "vbicm_stencil_mxu_bf16x3": [_PTR] * 5 + [_INT] * 3 + [_PTR],
+    "vbicm_stencil_mxu_f32": [_PTR] * 5 + [_INT] * 3 + [_PTR],
+    # (a, b, out, B, NY, XLP, nfma, stream) -> cudaError_t
+    "vbicm_fma_probe_f32": [_PTR] * 3 + [_INT] * 4 + [_PTR],
+    "vbicm_fma_probe_f64": [_PTR] * 3 + [_INT] * 4 + [_PTR],
     # (w, coeffs, u, q, B, NZ, NY, NX3, stream) -> cudaError_t
     "vbicm_stencil3d_affine_f32": [_PTR] * 4 + [_INT] * 4 + [_PTR],
     "vbicm_stencil3d_affine_f64": [_PTR] * 4 + [_INT] * 4 + [_PTR],

@@ -74,12 +74,14 @@ class StencilOperator:
         self.planes = {dt: torch.as_tensor(planes, dtype=dt, device=device).contiguous()
                        for dt in (torch.float32, torch.float64)}
 
-    def affine(self, coeffs, u):
+    def affine(self, coeffs, u, rows_per_block: int = 1):
         """``K(c) u`` for coeffs (B, 2) and u (B, ndof), in u's dtype: the
-        kernel on CUDA tensors, its plain version on CPU tensors."""
+        kernel on CUDA tensors (``rows_per_block`` grid rows a block), its
+        plain version on CPU tensors."""
         dt = u.dtype
         return stencil_affine_matvec(self.W[dt], self.planes[dt],
-                                     coeffs.to(dt).contiguous(), u.contiguous())
+                                     coeffs.to(dt).contiguous(), u.contiguous(),
+                                     rows_per_block=rows_per_block)
 
     def part_matvec(self, p: int, x):
         """``K_p x`` for a batch x (B, ndof), as plain PyTorch (the 9-offset

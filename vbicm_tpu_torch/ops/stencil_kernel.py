@@ -9,6 +9,11 @@ coefficient planes (:func:`pack_w_interleaved`); the plain version reads the
 unpacked block tables W (2, NY, NX, 3, 3, 2, 2) of ``ops.stencil``, so a
 fault in the packing cannot hide in both. On CPU tensors the wrapper runs the
 plain version; on CUDA tensors it launches the kernel or raises.
+
+``rows_per_block`` > 1 selects the kernel's rows-per-block option (the
+counterpart of ``stencil_affine_matvec_pallas_mr``): a block stages its
+rows + 2 u rows once and overlaps the next row's copy with the current row's
+arithmetic. Its result is bitwise equal to the one-row kernel's.
 """
 from __future__ import annotations
 
@@ -18,7 +23,7 @@ import torch
 from .. import _build
 
 # Shared memory one block may use on Hopper (227 KB); the kernel stages
-# TS * 3 rows of 2NX + 6 values and TS coefficient pairs.
+# TS * (rows_per_block + 2) rows of 2NX + 6 values and TS coefficient pairs.
 _SMEM_BYTES = 232448
 _SAMPLE_TILE = 8
 _MAX_THREADS = 512
@@ -69,28 +74,33 @@ def stencil_affine_reference(W, coeffs, u):
     return q
 
 
-def sample_tile(nx2: int, B: int, itemsize: int) -> int:
+def sample_tile(nx2: int, B: int, itemsize: int, rows_per_block: int = 1) -> int:
     """Samples per block: up to 8, fewer when B is smaller or the staged
-    rows would not fit in a block's shared memory."""
-    row = 3 * (nx2 + 6) + 2
+    rows (rows_per_block + 2 of them a sample) would not fit in a block's
+    shared memory."""
+    row = (rows_per_block + 2) * (nx2 + 6) + 2
     tile = min(_SAMPLE_TILE, B, _SMEM_BYTES // (row * itemsize))
     if tile < 1:
-        raise ValueError(f"a grid row of {nx2} lanes is too long for the stencil kernel's "
-                         f"shared memory ({_SMEM_BYTES} bytes)")
+        raise ValueError(f"{rows_per_block} grid row(s) of {nx2} lanes do not fit the stencil "
+                         f"kernel's shared memory ({_SMEM_BYTES} bytes)")
     return tile
 
 
-def stencil_affine_matvec(W, w_planes, coeffs, u):
+def stencil_affine_matvec(W, w_planes, coeffs, u, rows_per_block: int = 1):
     """Batched ``q = (c0 K_lam + c1 K_mu) u`` through the CUDA kernel.
 
     W: (2, NY, NX, 3, 3, 2, 2) block tables (the plain version's operand);
     w_planes: (NY, 42, 2NX) packed planes (the kernel's); coeffs (B, 2);
     u (B, 2*NY*NX). CPU tensors run :func:`stencil_affine_reference` on W;
-    CUDA tensors, all float32 or all float64, run the kernel on w_planes.
-    Returns q (B, 2*NY*NX) in u's dtype.
+    CUDA tensors, all float32 or all float64, run the kernel on w_planes:
+    one grid row a block, or ``rows_per_block`` rows a block (the last block
+    takes the rest), bitwise equal. Returns q (B, 2*NY*NX) in u's dtype.
 
-    ``stencil_affine_matvec.launches`` counts the kernel's launches.
+    ``stencil_affine_matvec.launches`` counts the one-row kernel's launches,
+    ``stencil_affine_matvec.rows_launches`` the rows-per-block option's.
     """
+    if not (isinstance(rows_per_block, int) and rows_per_block >= 1):
+        raise ValueError(f"rows_per_block must be a positive int, got {rows_per_block!r}")
     if u.device.type == "cpu":
         return stencil_affine_reference(W, coeffs, u)
     tensors = (w_planes, coeffs, u)
@@ -114,17 +124,28 @@ def stencil_affine_matvec(W, w_planes, coeffs, u):
     q = torch.empty_like(u)
     if B > 0:
         lib, _, _ = _build.load_library()
-        fn = lib.vbicm_stencil_affine_f32 if dtype == torch.float32 else lib.vbicm_stencil_affine_f64
-        tile = sample_tile(NX2, B, u.element_size())
+        f32 = dtype == torch.float32
+        tile = sample_tile(NX2, B, u.element_size(), rows_per_block)
         threads = min(_MAX_THREADS, -(-NX2 // 32) * 32)
+        ptrs = (w_planes.data_ptr(), coeffs.data_ptr(), u.data_ptr(), q.data_ptr())
         with torch.cuda.device(device):
-            err = fn(w_planes.data_ptr(), coeffs.data_ptr(), u.data_ptr(), q.data_ptr(),
-                     B, NY, NX2, tile, threads, torch.cuda.current_stream(device).cuda_stream)
+            stream = torch.cuda.current_stream(device).cuda_stream
+            if rows_per_block == 1:
+                fn = lib.vbicm_stencil_affine_f32 if f32 else lib.vbicm_stencil_affine_f64
+                err = fn(*ptrs, B, NY, NX2, tile, threads, stream)
+            else:
+                fn = lib.vbicm_stencil_affine_rows_f32 if f32 else lib.vbicm_stencil_affine_rows_f64
+                err = fn(*ptrs, B, NY, NX2, tile, rows_per_block, threads, stream)
         if err != 0:
             raise RuntimeError(f"stencil_affine kernel launch failed with CUDA error {err} "
-                               f"(B={B}, NY={NY}, NX2={NX2}, tile={tile}, {dtype})")
-        stencil_affine_matvec.launches += 1
+                               f"(B={B}, NY={NY}, NX2={NX2}, tile={tile}, "
+                               f"rows_per_block={rows_per_block}, {dtype})")
+        if rows_per_block == 1:
+            stencil_affine_matvec.launches += 1
+        else:
+            stencil_affine_matvec.rows_launches += 1
     return q
 
 
 stencil_affine_matvec.launches = 0
+stencil_affine_matvec.rows_launches = 0
