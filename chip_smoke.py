@@ -125,6 +125,80 @@ def least_time(nbytes, flops, dtype=torch.float32, unit=None):
     return seconds * 1e3, by
 
 
+def spectral_least_time(B, n, dtype):
+    """(function bound, tensor-core bound) of an apply at (B, n), each
+    (bound_ms, bound_by): V, g, coeffs and b read once, x and a written once;
+    4 B n^2 flops of products and 3 B n of the scale. The function's bound
+    is on the CUDA cores of ``dtype``; the tensor cores' counts the kernel's
+    own products, three TF32 ones (3xTF32) in float32, one DMMA in float64."""
+    itemsize = torch.finfo(dtype).bits // 8
+    nbytes = itemsize * (n * n + n + 2 * B + 3 * B * n)
+    flops = 4 * B * n * n
+    if dtype == torch.float32:
+        tc = least_time(nbytes, 3 * flops, unit="tf32_tc")
+    else:
+        tc = least_time(nbytes, flops, unit="fp64_tc")
+    return least_time(nbytes, flops + 3 * B * n, dtype), tc
+
+
+def spectral_times(shape, dtype, dev, card, phase, reps):
+    """Phase 7 / 17: the spectral kernel at ``shape`` against its plain
+    version and both bounds. Device time (graph_ms) and eager time (time_ms:
+    CUDA events around Python calls, host time included where the host is
+    the slower), each timed plain, kernel, kernel, plain; the launch count is
+    restored. Returns {"device": (kernel ms, plain ms), "eager": (...),
+    "bound": ..., "tc": ...}."""
+    from vbicm_tpu_torch.ops.spectral_kernel import (
+        launch_plan,
+        spectral_apply_batched,
+        spectral_apply_reference,
+    )
+
+    V, g, c, b = pencil_problem(*shape, seed=7, dtype=dtype, device=dev)
+    saved = spectral_apply_batched.launches
+    out = {}
+    for how, timer in (("device", graph_ms),
+                       ("eager", lambda f: time_ms(f, warmup=reps // 10, reps=reps))):
+        ms = {}
+        for name in ("plain", "kernel", "kernel2", "plain2"):
+            fn = spectral_apply_reference if name.startswith("plain") else spectral_apply_batched
+            ms[name] = timer(lambda: fn(V, g, c, b, return_coords=True))
+        out[how] = (min(ms["kernel"], ms["kernel2"]), min(ms["plain"], ms["plain2"]), ms)
+    spectral_apply_batched.launches = saved
+    out["bound"], out["tc"] = spectral_least_time(*shape, dtype)
+    plan = launch_plan(*shape, V.element_size())
+    dv, eg = out["device"], out["eager"]
+    print(f"[{phase} times] spectral apply (B, n)={shape} {dtype}, tile {plan.bm}x{plan.bn}, "
+          f"split {plan.split} ({plan.blocks} blocks a launch): device kernel {dv[0]:.4f} ms, "
+          f"plain {dv[1]:.4f} ms "
+          f"({dv[2]['plain']:.4f}, {dv[2]['kernel']:.4f}, {dv[2]['kernel2']:.4f}, "
+          f"{dv[2]['plain2']:.4f}); eager kernel {eg[0]:.4f} ms, plain {eg[1]:.4f} ms; bound "
+          f"{out['bound'][0]:.4f} ms ({out['bound'][1]}, CUDA cores), tensor-core bound "
+          f"{out['tc'][0]:.4f} ms ({out['tc'][1]}); on {card}", flush=True)
+    return out
+
+
+def ptxas_by_kernel(log):
+    """{mangled kernel name: (registers, spill store bytes, spill load
+    bytes)} from nvcc's -Xptxas -v log."""
+    import re
+
+    out, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            name = m.group(1)
+            out[name] = [0, 0, 0]
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m and name:
+            out[name][1:] = [int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            out[name][0] = int(m.group(1))
+    return out
+
+
 def stencil_least_time(planes, c, u):
     """least_time of a stencil matvec: u and q once, the coefficient planes'
     nonzero entries once (the lane offsets that carry no coefficient, and the
@@ -179,6 +253,14 @@ def time_ms(fn, warmup=20, reps=200):
     return res["mean_s"] * 1e3
 
 
+def graph_ms(fn):
+    """Device ms a call of ``fn``: calls captured in a CUDA graph and
+    replayed, so that no host time enters (utils/timing.py)."""
+    from vbicm_tpu_torch.utils.timing import graph_time_s
+
+    return graph_time_s(fn) * 1e3
+
+
 def wall_s(fn, reps, warmup=1):
     """Host wall seconds a call of ``fn`` under no_grad (for solves that
     synchronise with the host themselves), the card synchronised around the
@@ -206,6 +288,7 @@ def main():
     from vbicm_tpu_torch.model import build_fem_model
     from vbicm_tpu_torch.ops.solve import make_spectral_affine_solver
     from vbicm_tpu_torch.ops.spectral_kernel import (
+        TILES,
         spectral_apply_batched,
         spectral_apply_reference,
     )
@@ -220,9 +303,34 @@ def main():
 
     # 1. card and build
     _, build_s, build_log = _build.load_library()
-    ptxas = [ln.strip() for ln in build_log.splitlines() if "registers" in ln or "spill" in ln]
+    import re
+
+    regs, spectral = [], []
+    for kname, (nreg, st, ld) in ptxas_by_kernel(build_log).items():
+        m = re.search(r"spectral_apply_kernelI([fd])Li(\d+)ELi(\d+)ELi\d+ELi\d+ELb([01])ELb([01])E",
+                      kname)
+        c = re.search(r"spectral_combine_kernelI([fd])Lb([01])E", kname)
+        if m is None and c is None:
+            regs.append(f"{nreg} regs / {st}+{ld} B spilled")
+            continue
+        if m is not None:
+            vec = " vec" if m.group(5) == "1" else ""
+            label = (f"{'f32' if m.group(1) == 'f' else 'f64'} {m.group(2)}x{m.group(3)} "
+                     f"{'x' if m.group(4) == '1' else 'a'}{vec}")
+        else:
+            label = (f"{'f32' if c.group(1) == 'f' else 'f64'} combine "
+                     f"{'x' if c.group(2) == '1' else 'a'}")
+        spectral.append(f"{label}: {nreg} regs, {st}+{ld} B spilled")
+        if st or ld:
+            fail(f"spectral kernel {kname} spills ({st} B stored, {ld} B loaded)")
+    # (dtype, tile, launch, 16-byte copies or not), and the split's second
+    # pass by (dtype, launch)
+    n_spectral = 2 * len(TILES) * 2 * 2 + 2 * 2
+    if len(spectral) != n_spectral:
+        fail(f"expected {n_spectral} spectral kernels in the ptxas log, found {spectral}")
     print(f"[1 card] {card}; torch {torch.__version__} cuda {torch.version.cuda}; "
-          f"kernel build {build_s:.2f}s; ptxas: {' | '.join(ptxas)}", flush=True)
+          f"kernel build {build_s:.2f}s; ptxas spectral (dtype, tile, launch): "
+          f"{'; '.join(spectral)}; other kernels: {' | '.join(regs)}", flush=True)
 
     # 2. kernel against its plain version on the card
     worst = {}
@@ -234,18 +342,21 @@ def main():
                 pencils[B, n] = pencil_problem(B, n, seed=B + n, dtype=torch.float64, device=dev)
             V, g, c, b = (t.to(dtype) for t in pencils[B, n])
             x, a = spectral_apply_batched(V, g, c, b, return_coords=True)
+            x2, a2 = spectral_apply_batched(V, g, c, b, return_coords=True)
             x_only = spectral_apply_batched(V, g, c, b)
             xr, ar = spectral_apply_reference(V, g, c, b, return_coords=True)
             torch.cuda.synchronize()
             errs = (rel_err(x, xr), rel_err(a, ar), rel_err(x_only, xr))
             if not max(errs) <= REL_TOL[dtype]:
                 fail(f"kernel vs plain at B={B} n={n} {dtype}: rel err x/a/x-only {errs}")
+            if not (torch.equal(x, x2) and torch.equal(a, a2) and torch.equal(x, x_only)):
+                fail(f"kernel at B={B} n={n} {dtype}: two calls are not bitwise equal")
             worst[str(dtype)] = max(worst.get(str(dtype), 0.0), *errs)
             if dtype == torch.float32 and (B, n) == MAIN_SHAPE:
                 main_abs_err = float((x - xr).abs().max())
     print(f"[2 kernel] ok: max rel err vs plain f32 {worst['torch.float32']:.3e} (tol 2e-5), "
-          f"f64 {worst['torch.float64']:.3e} (tol 1e-12) over (B, n) in {SHAPES}, x and a",
-          flush=True)
+          f"f64 {worst['torch.float64']:.3e} (tol 1e-12) over (B, n) in {SHAPES}, x and a; "
+          "three calls bitwise equal", flush=True)
 
     # 3. adjoint through the solver: kernel + custom backward against torch
     #    autograd through the plain version, f64, Cook's pencil
@@ -323,27 +434,29 @@ def main():
     print(f"[7 times] step-1 train steps/s (B=64x4, f32 apply + 1 refinement, epochs 2-3): "
           f"{steps_per_s:.2f} on {card}", flush=True)
     times = {}
-    for shape, reps in ((MAIN_SHAPE, 200), (COARSE_SHAPE, 50)):
+    for shape, reps in ((MAIN_SHAPE, 200), (COARSE_SHAPE, 100)):
         for dtype in (torch.float32, torch.float64):
-            V, g, c, b = pencil_problem(*shape, seed=7, dtype=dtype, device=dev)
-            Vt = V.T.contiguous()
-            saved = spectral_apply_batched.launches
-            k_ms = time_ms(lambda: spectral_apply_batched(V, g, c, b, return_coords=True, Vt=Vt),
-                           warmup=reps // 10, reps=reps)
-            p_ms = time_ms(lambda: spectral_apply_reference(V, g, c, b, return_coords=True),
-                           warmup=reps // 10, reps=reps)
-            spectral_apply_batched.launches = saved
-            times[shape, dtype] = (k_ms, p_ms)
-            print(f"[7 times] spectral apply (B, n)={shape} {dtype}: kernel {k_ms:.4f} ms, "
-                  f"plain {p_ms:.4f} ms, on {card}", flush=True)
+            times[shape, dtype] = spectral_times(shape, dtype, dev, card, 7, reps)
 
     scaled = scaled_path(dev, card)
     box = box3d_path(dev, card)
     elem = element_path(dev, card)
     study = study_path(dev, card)
 
-    def spectral_bound(B, n):  # V, Vt, g, coeffs, b read; x, a written (f32)
-        return least_time(4 * (2 * n * n + n + 2 * B + 3 * B * n), 4 * B * n * n + 3 * B * n)
+    times[BOX_COARSE_SHAPE, torch.float32] = box["spectral_ms"][torch.float32]
+    times[BOX_COARSE_SHAPE, torch.float64] = box["spectral_ms"][torch.float64]
+    spectral = {}  # the f32 record's fields by shape (device time), and the f64 times
+    for shape, tag in ((MAIN_SHAPE, ""), (COARSE_SHAPE, "_coarse_256x1680"),
+                       (BOX_COARSE_SHAPE, "_coarse_256x1200")):
+        for dtype, dt in ((torch.float32, ""), (torch.float64, "_f64")):
+            t = times[shape, dtype]
+            spectral.update({f"ms{dt}{tag}": t["device"][0], f"plain_ms{dt}{tag}": t["device"][1],
+                             f"ms_eager{dt}{tag}": t["eager"][0],
+                             f"plain_ms_eager{dt}{tag}": t["eager"][1],
+                             f"bound_ms{dt}{tag}": t["bound"][0],
+                             f"tc_bound_ms{dt}{tag}": t["tc"][0]})
+            if not dt:
+                spectral[f"bound_by{tag}"] = t["bound"][1]
 
     records = [{
         "name": "spectral_apply_batched",
@@ -357,17 +470,11 @@ def main():
                              "box3d_32x8x8": box["spectral_launches"],
                              "rom_160x80": elem["spectral_launches"]},
         "max_abs_err": main_abs_err,
-        "ms": times[MAIN_SHAPE, torch.float32][0],
-        "plain_ms": times[MAIN_SHAPE, torch.float32][1],
-        "bound_ms": spectral_bound(*MAIN_SHAPE)[0],
-        "bound_by": spectral_bound(*MAIN_SHAPE)[1],
+        **{k: spectral[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
         "library_ms": None,  # no one PyTorch call computes V diag(1/d) V^T b per sample
-        "ms_coarse_256x1680": times[COARSE_SHAPE, torch.float32][0],
-        "plain_ms_coarse_256x1680": times[COARSE_SHAPE, torch.float32][1],
-        "bound_ms_coarse_256x1680": spectral_bound(*COARSE_SHAPE)[0],
-        "ms_coarse_256x1200": box["spectral_ms"][0],
-        "plain_ms_coarse_256x1200": box["spectral_ms"][1],
-        "bound_ms_coarse_256x1200": spectral_bound(*BOX_COARSE_SHAPE)[0],
+        "tc_bound_ms": spectral["tc_bound_ms"],  # 3xTF32 on tf32_tc (f64: DMMA on fp64_tc)
+        **{k: v for k, v in spectral.items()
+           if k not in ("ms", "plain_ms", "bound_ms", "bound_by", "tc_bound_ms")},
     }, {
         "name": "stencil_affine_matvec",
         "route": "cuda",
@@ -1128,10 +1235,7 @@ def box3d_path(dev, card):
     from vbicm_tpu_torch.model import build_fem_model
     from vbicm_tpu_torch.ops.assembly import element_affine_matvec
     from vbicm_tpu_torch.ops.element import lame_from_Ev
-    from vbicm_tpu_torch.ops.spectral_kernel import (
-        spectral_apply_batched,
-        spectral_apply_reference,
-    )
+    from vbicm_tpu_torch.ops.spectral_kernel import spectral_apply_batched
     from vbicm_tpu_torch.ops.stencil3d import StencilOperator3d
     from vbicm_tpu_torch.ops.stencil3d_kernel import (
         stencil3d_affine_matvec,
@@ -1314,19 +1418,8 @@ def box3d_path(dev, card):
                   f"planes once), plain {p_ms:.4f} ms, cuSPARSE yardstick {l_ms:.4f} ms (rel "
                   f"err {lib_err:.1e}), on {card}", flush=True)
     stencil3d_affine_matvec.launches = saved
-    saved = spectral_apply_batched.launches
-    for dtype in (torch.float32, torch.float64):
-        V, g, c, b = pencil_problem(*BOX_COARSE_SHAPE, seed=7, dtype=dtype, device=dev)
-        Vt = V.T.contiguous()
-        k_ms = time_ms(lambda: spectral_apply_batched(V, g, c, b, return_coords=True, Vt=Vt),
-                       warmup=5, reps=50)
-        p_ms = time_ms(lambda: spectral_apply_reference(V, g, c, b, return_coords=True),
-                       warmup=5, reps=50)
-        if dtype == torch.float32:
-            out["spectral_ms"] = (k_ms, p_ms)
-        print(f"[17 times] spectral apply (B, n)={BOX_COARSE_SHAPE} {dtype}: kernel "
-              f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, on {card}", flush=True)
-    spectral_apply_batched.launches = saved
+    out["spectral_ms"] = {dtype: spectral_times(BOX_COARSE_SHAPE, dtype, dev, card, 17, 100)
+                          for dtype in (torch.float32, torch.float64)}
     refine = 2
     fh, solve = fhs["bench", refine]["fh"], fhs["bench", refine]["solve"]
     f64_ms = out["stencil3d_ms"][(64, 16, 16), torch.float64][0]

@@ -14,7 +14,7 @@ from vbicm_tpu.solver import make_fh_fun as jax_make_fh_fun
 from vbicm_tpu_torch.config import MaterialCard, ProblemConfig, SectionCard
 from vbicm_tpu_torch.mesh import cooks_membrane_mesh
 from vbicm_tpu_torch.model import build_fem_model
-from vbicm_tpu_torch.solver import fea_solution, make_fh_fun, probe_von_mises
+from vbicm_tpu_torch.solver import fea_solution, make_fh_fun, make_solver, probe_von_mises
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -73,6 +73,51 @@ def test_fea_solution_matches_golden(model, golden):
         np.testing.assert_allclose(vm, case["vm_e12_q13"], rtol=0, atol=1e-9)
         np.testing.assert_allclose(np.linalg.norm(u), case["u_norm"], rtol=0, atol=1e-9)
         np.testing.assert_allclose(sol.stress[11].numpy().T, case["stress_e12"], atol=1e-9)
+
+
+@pytest.mark.parametrize("dense,kw", [
+    (True, dict(method="spectral")),
+    (True, dict(method="spectral", cg_tol=1e-3, cg_maxiter=2)),  # no CG on a dense model
+    (False, dict(method="spectral", cg_tol=1e-6, cg_maxiter=4000)),
+    (False, dict(method="cholesky", cg_tol=1e-12, cg_maxiter=7)),  # stops short of convergence
+], ids=["dense", "dense_cg_kw_unused", "matfree_cg_tol", "matfree_cg_maxiter"])
+def test_fh_takes_the_jax_solver_keywords(model, cooks_model, thetas, dense, kw):
+    """make_fh_fun's method, cg_tol and cg_maxiter as the JAX package takes
+    them: Cook's 20x10 dense (the spectral pencil), and 8x4 matrix-free
+    (Jacobi-PCG, where the JAX package ignores ``method``)."""
+    from vbicm_tpu.mesh import cooks_membrane_mesh as jax_cooks_mesh
+    from vbicm_tpu.model import build_fem_model as jax_build_fem_model
+
+    if dense:
+        ours, jmodel = model, cooks_model
+    else:
+        ours = build_fem_model(cooks_membrane_mesh(8, 4), device="cpu", dense=False)
+        jmodel = jax_build_fem_model(jax_cooks_mesh(8, 4), dense=False)
+    cfg = dataclasses.replace(ProblemConfig(), node_id=ours.nnodes, ele_id=ours.nele // 2)
+    jcfg = dataclasses.replace(JaxProblemConfig(), node_id=ours.nnodes, ele_id=ours.nele // 2)
+    y_j, h_j = jax.jit(jax.vmap(jax_make_fh_fun(jmodel, jcfg, **kw)))(jnp.asarray(thetas[:4]))
+    with torch.no_grad():
+        y, h = make_fh_fun(ours, cfg, **kw)(torch.as_tensor(thetas[:4]))
+    # float64 on both sides and the same solver: 1e-10 dense; matrix-free,
+    # CG stopped early, where ~40 Jacobi-PCG iterations have amplified the
+    # two packages' float64 roundings: 1e-8 (measured 3.7e-10 at tol 1e-6)
+    tol = 1e-10 if dense else 1e-8
+    assert _rel(y, y_j) < tol and _rel(h, h_j) < tol
+    if not dense:  # the keyword took effect: away from the tol-1e-12 solve
+        with torch.no_grad():
+            y_conv, _ = make_fh_fun(ours, cfg)(torch.as_tensor(thetas[:4]))
+        assert _rel(y, y_conv) > (1e-9 if kw["cg_maxiter"] > 100 else 1e-4)  # 3.8e-9, 0.70
+
+
+def test_solver_methods_not_ported_raise(model):
+    for method in ("cholesky", "inverse"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
+            make_fh_fun(model, method=method)
+    with pytest.raises(ValueError):
+        make_fh_fun(model, method="lu")
+    with pytest.raises(ValueError):
+        make_solver(build_fem_model(cooks_membrane_mesh(4, 2), device="cpu", dense=False),
+                    method="lu")
 
 
 @pytest.mark.parametrize("mixed", [False, True], ids=["f64", "f32_apply_1_refinement"])

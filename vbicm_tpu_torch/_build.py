@@ -3,13 +3,13 @@
 The sources under ``csrc/`` (the spectral apply, the 2-D stencil matvec
 with its rows-per-block option, the banded tensor-core stencil, the 3-D
 stencil matvec, the element matvec and the FMA-ceiling probe) have a plain
-C interface. At first use each
-is compiled with ``nvcc`` for ``sm_90a``, all at once in parallel
-processes, and the objects are linked into one shared library under
-``build/vbicm_tpu_torch/`` at the root of the checkout, loaded with
-``ctypes``. The library's file name carries a hash of
-the sources and flags, so an edited source builds anew and a stale library
-is never loaded. Nothing is fetched; a failed build raises.
+C interface; shared device code sits in ``csrc/*.cuh`` headers. At first
+use each source is compiled with ``nvcc`` for ``sm_90a``, all at once in
+parallel processes, and the objects are linked into one shared library
+under ``build/vbicm_tpu_torch/`` at the root of the checkout, loaded with
+``ctypes``. The library's file name carries a hash of the sources, headers
+and flags, so an edited source or header builds anew and a stale library is
+never loaded. Nothing is fetched; a failed build raises.
 """
 from __future__ import annotations
 
@@ -32,9 +32,9 @@ NVCC_FLAGS = (
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
 _SIGNATURES = {
-    # (V, Vt, g, coeffs, b, x, a, B, n, tile, stream) -> cudaError_t
-    "vbicm_spectral_apply_f32": [_PTR] * 7 + [_INT] * 3 + [_PTR],
-    "vbicm_spectral_apply_f64": [_PTR] * 7 + [_INT] * 3 + [_PTR],
+    # (V, g, coeffs, b, x, a, ws, B, n, bm, bn, split, vec, stream) -> cudaError_t
+    "vbicm_spectral_apply_f32": [_PTR] * 7 + [_INT] * 6 + [_PTR],
+    "vbicm_spectral_apply_f64": [_PTR] * 7 + [_INT] * 6 + [_PTR],
     # (w, coeffs, u, q, B, NY, NX2, TS, threads, stream) -> cudaError_t
     "vbicm_stencil_affine_f32": [_PTR] * 4 + [_INT] * 5 + [_PTR],
     "vbicm_stencil_affine_f64": [_PTR] * 4 + [_INT] * 5 + [_PTR],
@@ -76,8 +76,9 @@ def load_library():
     when a library built from the same sources was already on disk.
     """
     sources = sorted(glob.glob(os.path.join(_PKG_DIR, "csrc", "*.cu")))
+    headers = sorted(glob.glob(os.path.join(_PKG_DIR, "csrc", "*.cuh")))
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in sources:
+    for path in sources + headers:
         with open(path, "rb") as f:
             digest.update(f.read())
     lib_path = os.path.join(BUILD_DIR, f"libvbicm_kernels_{digest.hexdigest()[:16]}.so")

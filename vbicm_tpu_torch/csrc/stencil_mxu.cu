@@ -17,7 +17,7 @@
 //     (__float2bfloat16_rn), the table comes split (Mh, Ml), and
 //     Ah Mh + Al Mh + Ah Ml is accumulated in float32 by BF16 m16n8k16 MMAs.
 //   f32: one float32 table; both operands are split into TF32 big and small
-//     parts (cvt.rna.tf32) and As Mb + Ab Ms + Ab Mb is accumulated in
+//     parts (tf32x3.cuh) and As Mb + Ab Ms + Ab Mb is accumulated in
 //     float32 by TF32 m16n8k8 MMAs (3xTF32, the tensor cores' counterpart of
 //     the TPU's Precision.HIGHEST; about 2e-7 of max|q| from the exact
 //     operator, where one TF32 product would give 1e-3). FP64 DMMA is the
@@ -48,6 +48,8 @@
 
 #include <cstddef>
 #include <cstdint>
+
+#include "tf32x3.cuh"
 
 namespace {
 
@@ -82,10 +84,6 @@ constexpr size_t smem_bytes() {
               static_cast<size_t>(Mode::kTables) * kKC * kBStride * sizeof(typename Mode::Table));
 }
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
 __device__ __forceinline__ void cp_async_4(void* dst, const void* src, bool valid) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
                "r"(valid ? 4 : 0));
@@ -114,31 +112,10 @@ __device__ __forceinline__ void split_bf16(float2 x, uint32_t& hi, uint32_t& lo)
   lo = pack2(__bfloat16_as_ushort(l0), __bfloat16_as_ushort(l1));
 }
 
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// x -> (big, small) TF32 parts: big = tf32(x), small = tf32(x - big)
-__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
-  big = to_tf32(x);
-  small = to_tf32(x - __uint_as_float(big));
-}
-
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
                                          uint32_t b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
       "{%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));

@@ -45,7 +45,6 @@ class SpectralAffineSolver:
         adt = parts.dtype if apply_dtype is None else apply_dtype
         self.parts = parts
         self.V = torch.as_tensor(V, device=parts.device).to(adt).contiguous()
-        self.Vt = self.V.T.contiguous()
         self.g = torch.as_tensor(g, device=parts.device).to(adt)
         self.refine_iters = int(refine_iters)
 
@@ -61,7 +60,7 @@ class SpectralAffineSolver:
 
         def apply(rhs):
             return spectral_apply_batched(self.V, self.g, ca, rhs.to(adt).contiguous(),
-                                          return_coords=True, Vt=self.Vt)
+                                          return_coords=True)
 
         x, a = apply(b)
         x = x.to(b.dtype)

@@ -42,18 +42,36 @@ class FemSolution:
     reactions: torch.Tensor  # (ndof,) support reactions (nonzero on supp dofs)
 
 
-def make_solver(model: FemModel, *, factor_dtype=None, refine_iters: int = 0,
-                cg_tol: float = 1e-12, cg_maxiter: int = 4000) -> Callable:
+_METHODS = ("spectral", "cholesky", "inverse")
+
+
+def _check_method(model: FemModel, method: str):
+    """The JAX package's dense ``method``: "spectral" is ported; "cholesky"
+    and "inverse" raise on dense models, and are ignored on matrix-free ones
+    (as there); any other value raises."""
+    if method not in _METHODS:
+        raise ValueError(f"unknown method {method!r}; expected one of {_METHODS}")
+    if model.dense and method != "spectral":
+        raise NotImplementedError(f"method={method!r} (ops/solve.py::make_dense_affine_solver) "
+                                  "is not ported; ROADMAP Queue 1 item 2")
+
+
+def make_solver(model: FemModel, *, method: str = "spectral", factor_dtype=None,
+                refine_iters: int = 0, cg_tol: float = 1e-12,
+                cg_maxiter: int = 4000) -> Callable:
     """Build ``solve_free(c0 (B,), c1 (B,)) -> u (B, ndof)`` for this model.
 
-    Dense models: the spectral pencil (``ops.solve``), the JAX package's
-    default method; ``factor_dtype`` selects the precision of its apply.
-    Matrix-free models: Jacobi-PCG on the element operator (the element
-    kernel on the GPU, ``ops.element_kernel``) at ``cg_tol`` and
-    ``cg_maxiter``; ``factor_dtype`` is the CG's dtype, and
-    ``refine_iters`` refinements with float64 residuals bring the answer
-    back to the model's. ``solve_free.solver`` is then the underlying
+    Dense models: ``method="spectral"``, the spectral pencil (``ops.solve``),
+    the JAX package's default; ``factor_dtype`` selects the precision of its
+    apply. The JAX package's "cholesky" and "inverse" raise
+    ``NotImplementedError`` here. Matrix-free models: Jacobi-PCG on the
+    element operator (the element kernel on the GPU,
+    ``ops.element_kernel``) at ``cg_tol`` and ``cg_maxiter``, whatever the
+    method; ``factor_dtype`` is the CG's dtype, and ``refine_iters``
+    refinements with float64 residuals bring the answer back to the model's.
+    ``solve_free.solver`` is then the underlying
     ``ops.solve.MatfreeAffineSolver``."""
+    _check_method(model, method)
     if not model.dense:
         base = make_matfree_affine_solver(
             torch.stack([model.ke_lam, model.ke_mu]), model.lm, model.free_mask, model.ndof,
@@ -159,8 +177,11 @@ def make_fh_fun(
     model: FemModel,
     cfg: ProblemConfig = ProblemConfig(),
     *,
+    method: str = "spectral",
     factor_dtype=None,
     refine_iters: int = 0,
+    cg_tol: float = 1e-12,
+    cg_maxiter: int = 4000,
     solve_free: Optional[Callable] = None,
 ) -> Callable:
     """Build the batched observation operator
@@ -169,11 +190,15 @@ def make_fh_fun(
     E = exp(std0 * t0 + mean0), nu = 0.5 * sigmoid(std1 * t1 + mean1);
     y = the ``model.ndm`` displacements at ``cfg.node_id``; h = reference von Mises at
     ``cfg.ele_id``, qpts ``cfg.nipt_id``. Differentiable in thetas.
-    ``solve_free(c0 (B,), c1 (B,)) -> u (B, ndof)`` overrides the spectral
-    solver (e.g. :func:`make_two_level_solver`).
+    ``method``, ``factor_dtype``, ``refine_iters``, ``cg_tol`` and
+    ``cg_maxiter`` go to :func:`make_solver`;
+    ``solve_free(c0 (B,), c1 (B,)) -> u (B, ndof)`` overrides it (e.g.
+    :func:`make_two_level_solver`).
     """
     if solve_free is None:
-        solve_free = make_solver(model, factor_dtype=factor_dtype, refine_iters=refine_iters)
+        solve_free = make_solver(model, method=method, factor_dtype=factor_dtype,
+                                 refine_iters=refine_iters, cg_tol=cg_tol,
+                                 cg_maxiter=cg_maxiter)
     if not (1 <= cfg.node_id <= model.nnodes):
         raise ValueError(f"probe node_id {cfg.node_id} outside [1, {model.nnodes}]")
     if not (1 <= cfg.ele_id <= model.nele):
@@ -206,21 +231,22 @@ def make_coarse_spectral_apply(coarse_model: FemModel) -> Callable:
     K_c(coeffs)^-1 r_full`` through the coarse pencil's eigenbasis and the
     spectral kernel, zeros on the coarse supports; the coarse part of the
     two-level preconditioner. It follows its input's dtype: float32 inside
-    a float32 CG, float64 otherwise. The float32 apply is full float32."""
+    a float32 CG, float64 otherwise. The float32 apply keeps float32
+    accuracy (3xTF32 on the card), the JAX package's default precision."""
     g, V = scipy.linalg.eigh(coarse_model.k_lam_ff.cpu().numpy(),
                              coarse_model.k_mu_ff.cpu().numpy())
     device = coarse_model.device
     tables = {}
     for dt in (torch.float32, torch.float64):
-        Vd = torch.as_tensor(V, dtype=dt, device=device).contiguous()
-        tables[dt] = (Vd, Vd.T.contiguous(), torch.as_tensor(g, dtype=dt, device=device))
+        tables[dt] = (torch.as_tensor(V, dtype=dt, device=device).contiguous(),
+                      torch.as_tensor(g, dtype=dt, device=device))
     free = coarse_model.free_dof
     embed = _make_free_embed(coarse_model)
 
     def apply(coeffs, r_full):
-        V_, Vt, g_ = tables[r_full.dtype]
+        V_, g_ = tables[r_full.dtype]
         c = coeffs.to(r_full.dtype).contiguous()
-        return embed(spectral_apply_batched(V_, g_, c, r_full[:, free].contiguous(), Vt=Vt))
+        return embed(spectral_apply_batched(V_, g_, c, r_full[:, free].contiguous()))
 
     return apply
 
@@ -264,8 +290,8 @@ def make_two_level_solver(
     Only ``cycle="additive"`` and ``transfer="conv"`` are ported; the JAX
     package's other options raise (a ``transfer`` other than "conv" on the
     element path raises ``ValueError``, as there). Its
-    ``coarse_f32_precision`` is not taken: the float32 coarse apply here is
-    always full float32.
+    ``coarse_f32_precision`` is not taken: the float32 coarse apply here
+    always keeps float32 accuracy (3xTF32 on the card).
     """
     if not use_stencil and transfer != "conv":
         raise ValueError(f"transfer={transfer!r} needs use_stencil=True")
@@ -322,7 +348,8 @@ def make_two_level_solver_box3d(
 
     The JAX package's ``use_pallas`` and ``coarse_f32_precision`` are not
     taken: on CUDA tensors the kernel always runs, and the float32 coarse
-    apply is full float32. ``cycle="vcycle"`` and ``with_rhs_solver`` raise.
+    apply keeps float32 accuracy (3xTF32 on the card). ``cycle="vcycle"``
+    and ``with_rhs_solver`` raise.
     """
     _check_two_level_options(cycle, with_rhs_solver)
     ncx, ncy, ncz = cells_coarse

@@ -79,6 +79,34 @@ def benchmark_fn(fn: Callable, *args, iters: int = 20, warmup: int = 1, repeats:
             "device": str(device), "clock": "cuda_events" if cuda else "host"}
 
 
+def graph_time_s(fn: Callable, reps: int = 20, replays: int = 10) -> float:
+    """Device seconds a call of ``fn`` takes on the current CUDA device:
+    ``reps`` calls (after three warm-up calls on a side stream) captured in
+    one CUDA graph, replayed ``replays`` times between CUDA events, so that
+    no host time (Python, launches) enters. ``fn`` must be capturable: only
+    CUDA work on the current stream, no synchronisation."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / 1e3 / (reps * replays)
+
+
 @contextlib.contextmanager
 def profile_trace(path: Optional[str] = None):
     """``torch.profiler`` over the block (CPU activity, and CUDA when a GPU
