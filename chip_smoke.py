@@ -31,11 +31,17 @@ before and read just after:
   the certified ROM inside the ELBO, the element-path two-level solver for
   its full-order spot check).
 
-- the stencil-kernel study (phases 24-27): the one-row stencil kernel's
-  rows-per-block option bitwise against it, the banded tensor-core stencil
-  in both precision modes against its plain version and the float64
-  stencil, the FMA-ceiling probe against its plain version, and
+- the stencil-kernel study (phases 24-27): the 2-D stencil kernel with
+  forced rows a band (rows_per_block 1, 2, 3, 4, 8) bitwise against its
+  launch plan's rows, the banded tensor-core stencil in both precision
+  modes against its plain version and the float64 stencil, the FMA-ceiling
+  probe against its plain version, and
   examples/stencil_kernel_study_torch.py's main at 160x80, B = 256.
+
+Phase 1 fails if a spectral or stencil kernel spills registers; phases 2,
+8, 13 and 18 hold two calls of a kernel bitwise equal; the stencil kernels
+are timed by device time (CUDA graphs) beside eager time in float32 and
+float64, each with its share of its bound.
 
 Prints one line per phase, the card's name and power limit, a JSON line with
 the kernels' records (each with its bound: the larger of the bytes it must
@@ -91,9 +97,10 @@ ELEMENT_MESHES = [("8x4", lambda m: m.cooks_membrane_mesh(8, 4), False),
                   ("4x2x2", lambda m: m.beam_hex8_mesh(4, 2, 2), True),
                   ("32x8x8", lambda m: m.beam_hex8_mesh(32, 8, 8), True)]
 # the study path (phases 24-27): rows_per_block values held bitwise against
-# the one-row kernel (2 and 4 do not divide NY = 81, 8 divides none of the
-# grids' NY), and the probe's (B, NY, XLP) shapes
-ROWS_PER_BLOCK = (2, 3, 4, 8)
+# the launch plan's rows (2 and 4 do not divide NY = 81, 8 divides none of
+# the grids' NY, and 4 and 8 take 160x80's bands in sub-bands), and the
+# probe's (B, NY, XLP) shapes
+ROWS_PER_BLOCK = (1, 2, 3, 4, 8)
 PROBE_SHAPES = [(1, 3, 128), (5, 7, 128), (300, 17, 256), (256, 81, 384)]
 PROBE_MAIN = (256, 81, 384)  # the study's: B = 256, NY = 81, XLP = 384
 # kernel #6 against its plain version, of max|q|: the same products (bf16x3)
@@ -209,6 +216,17 @@ def stencil_least_time(planes, c, u):
     return least_time(nbytes, 2 * nnz * u.shape[0] + 3 * u.numel(), u.dtype)
 
 
+def stencil_fields(times, tag=""):
+    """A stencil kernel's JSON fields from stencil_times' records by dtype:
+    the float32 ones under their own names, the float64 ones with "_f64",
+    all with ``tag`` (a shape) appended."""
+    out = {}
+    for dtype, dt in ((torch.float32, ""), (torch.float64, "_f64")):
+        for key, value in times[dtype].items():
+            out[f"{key}{dt}{tag}"] = value
+    return out
+
+
 def assembled_csr(model, dtype):
     """The assembled K_lam, K_mu (all dofs, no masking) as CSR tensors on
     the model's device: the library yardstick's operands."""
@@ -253,12 +271,30 @@ def time_ms(fn, warmup=20, reps=200):
     return res["mean_s"] * 1e3
 
 
-def graph_ms(fn):
+def graph_ms(fn, reps=20, replays=10):
     """Device ms a call of ``fn``: calls captured in a CUDA graph and
     replayed, so that no host time enters (utils/timing.py)."""
     from vbicm_tpu_torch.utils.timing import graph_time_s
 
-    return graph_time_s(fn) * 1e3
+    return graph_time_s(fn, reps, replays) * 1e3
+
+
+def stencil_times(kernel, plain, bound, reps=100, plain_reps=5):
+    """A stencil kernel's record at one shape and dtype: device time
+    (graph_ms) of the kernel and its plain version, timed plain, kernel,
+    kernel, plain (the better of each pair), the kernel's eager time
+    (CUDA events around Python calls, host time included), its bound and
+    its share of the bound."""
+    dev = {}
+    for name in ("plain", "kernel", "kernel2", "plain2"):
+        if name.startswith("plain"):
+            dev[name] = graph_ms(plain, reps=plain_reps, replays=2)
+        else:
+            dev[name] = graph_ms(kernel)
+    ms = min(dev["kernel"], dev["kernel2"])
+    return {"ms": ms, "plain_ms": min(dev["plain"], dev["plain2"]),
+            "ms_eager": time_ms(kernel, warmup=reps // 10, reps=reps),
+            "bound_ms": bound[0], "bound_by": bound[1], "share_of_bound": bound[0] / ms}
 
 
 def wall_s(fn, reps, warmup=1):
@@ -305,11 +341,18 @@ def main():
     _, build_s, build_log = _build.load_library()
     import re
 
-    regs, spectral = [], []
+    regs, spectral, stencils = [], [], []
     for kname, (nreg, st, ld) in ptxas_by_kernel(build_log).items():
         m = re.search(r"spectral_apply_kernelI([fd])Li(\d+)ELi(\d+)ELi\d+ELi\d+ELb([01])ELb([01])E",
                       kname)
         c = re.search(r"spectral_combine_kernelI([fd])Lb([01])E", kname)
+        sk = re.search(r"(stencil3?d?_affine)_kernelI([fd])E", kname)
+        if sk is not None:
+            stencils.append(f"{sk.group(1)} {'f32' if sk.group(2) == 'f' else 'f64'}: "
+                            f"{nreg} regs, {st}+{ld} B spilled")
+            if st or ld:
+                fail(f"stencil kernel {kname} spills ({st} B stored, {ld} B loaded)")
+            continue
         if m is None and c is None:
             regs.append(f"{nreg} regs / {st}+{ld} B spilled")
             continue
@@ -328,9 +371,13 @@ def main():
     n_spectral = 2 * len(TILES) * 2 * 2 + 2 * 2
     if len(spectral) != n_spectral:
         fail(f"expected {n_spectral} spectral kernels in the ptxas log, found {spectral}")
+    # the 2-D and the 3-D kernel, each in f32 and f64
+    if len(stencils) != 2 + 2:
+        fail(f"expected 4 stencil kernels (2 2-D, 2 3-D) in the ptxas log, found {stencils}")
     print(f"[1 card] {card}; torch {torch.__version__} cuda {torch.version.cuda}; "
           f"kernel build {build_s:.2f}s; ptxas spectral (dtype, tile, launch): "
-          f"{'; '.join(spectral)}; other kernels: {' | '.join(regs)}", flush=True)
+          f"{'; '.join(spectral)}; stencils: {'; '.join(stencils)}; other kernels: "
+          f"{' | '.join(regs)}", flush=True)
 
     # 2. kernel against its plain version on the card
     worst = {}
@@ -458,6 +505,7 @@ def main():
             if not dt:
                 spectral[f"bound_by{tag}"] = t["bound"][1]
 
+    f32, f64 = torch.float32, torch.float64
     records = [{
         "name": "spectral_apply_batched",
         "route": "cuda",
@@ -484,11 +532,7 @@ def main():
         "launches_by_path": {"scaled_160x80": scaled["stencil_launches"],
                              "stencil_study_160x80": study["onerow_launches"]},
         "max_abs_err": scaled["stencil_abs_err"],
-        "ms": scaled["stencil_ms"][torch.float32][0],
-        "plain_ms": scaled["stencil_ms"][torch.float32][1],
-        "bound_ms": scaled["stencil_bound"][0],
-        "bound_by": scaled["stencil_bound"][1],
-        "library_ms": scaled["stencil_ms"][torch.float32][2],
+        **stencil_fields(scaled["stencil_ms"]),
     }, {
         "name": "stencil3d_affine_matvec",
         "route": "cuda",
@@ -497,15 +541,9 @@ def main():
         "launches": box["stencil3d_launches"],
         "launches_by_path": {"box3d_32x8x8": box["stencil3d_launches"]},
         "max_abs_err": box["stencil3d_abs_err"],
-        "ms": box["stencil3d_ms"][(32, 8, 8), torch.float32][0],
-        "plain_ms": box["stencil3d_ms"][(32, 8, 8), torch.float32][1],
-        "bound_ms": box["stencil3d_bound"][32, 8, 8][0],
-        "bound_by": box["stencil3d_bound"][32, 8, 8][1],
-        "library_ms": box["stencil3d_ms"][(32, 8, 8), torch.float32][2],
-        "ms_64x16x16": box["stencil3d_ms"][(64, 16, 16), torch.float32][0],
-        "plain_ms_64x16x16": box["stencil3d_ms"][(64, 16, 16), torch.float32][1],
-        "bound_ms_64x16x16": box["stencil3d_bound"][64, 16, 16][0],
-        "library_ms_64x16x16": box["stencil3d_ms"][(64, 16, 16), torch.float32][2],
+        **stencil_fields({dt: box["stencil3d_ms"][(32, 8, 8), dt] for dt in (f32, f64)}),
+        **stencil_fields({dt: box["stencil3d_ms"][(64, 16, 16), dt] for dt in (f32, f64)},
+                         "_64x16x16"),
     }, {
         "name": "element_affine_matvec_kernel",
         "route": "cuda",
@@ -522,7 +560,6 @@ def main():
         "ms_f64": elem["element_ms"][torch.float64][0],
         "bound_ms_f64": elem["element_ms"][torch.float64][3][0],
     }]
-    f32, f64 = torch.float32, torch.float64
     rows32, rows64 = study["rows_ms"][f32], study["rows_ms"][f64]
     mxu = study["mxu_ms"]
     probe = study["probe_ms"]
@@ -539,11 +576,15 @@ def main():
         "plain_ms": rows32[1],
         "bound_ms": study["stencil_bound"][0],
         "bound_by": study["stencil_bound"][1],
-        "library_ms": scaled["stencil_ms"][f32][2],  # #2's function: phase 12's cuSPARSE pair
+        # #2's function: phase 12's cuSPARSE pair
+        "library_ms": scaled["stencil_ms"][f32]["library_ms"],
+        "share_of_bound": study["stencil_bound"][0] / rows32[0][3],
         "ms_rows_per_block_8": rows32[0][8],
         "ms_one_row_same_call": rows32[0][1],
+        "ms_plan_same_call": rows32[0][None],
         "ms_f64": rows64[0][3],
         "ms_f64_rows_per_block_8": rows64[0][8],
+        "ms_f64_plan_same_call": rows64[0][None],
     }, {
         "name": "stencil_affine_matvec_mxu",
         "route": "cuda",
@@ -557,7 +598,7 @@ def main():
         "plain_ms": mxu["bf16x3"][1],
         "bound_ms": study["stencil_bound"][0],  # the function's (kernel #2's)
         "bound_by": study["stencil_bound"][1],
-        "library_ms": scaled["stencil_ms"][f32][2],
+        "library_ms": scaled["stencil_ms"][f32]["library_ms"],
         "bound_ms_densified": mxu["bf16x3"][2][0],
         "bound_by_densified": mxu["bf16x3"][2][1],
         "ms_f32": mxu["f32"][0],
@@ -604,7 +645,11 @@ def scaled_path(dev, card):
     from vbicm_tpu_torch.ops.element import lame_from_Ev
     from vbicm_tpu_torch.ops.spectral_kernel import spectral_apply_batched
     from vbicm_tpu_torch.ops.stencil import StencilOperator
-    from vbicm_tpu_torch.ops.stencil_kernel import stencil_affine_matvec, stencil_affine_reference
+    from vbicm_tpu_torch.ops.stencil_kernel import (
+        launch_plan,
+        stencil_affine_matvec,
+        stencil_affine_reference,
+    )
     from vbicm_tpu_torch.prob.datagen import generate_data_fem
     from vbicm_tpu_torch.solver import make_fh_fun, make_solver, make_two_level_solver
     from vbicm_tpu_torch.vi.train import TwoStepTrainer
@@ -623,20 +668,22 @@ def scaled_path(dev, card):
             c64 = torch.as_tensor(rng.uniform(1.0, 3.0, (B, 2)), device=dev)
             for dtype in (torch.float32, torch.float64):
                 u, c = u64.to(dtype), c64.to(dtype)
-                q = op.affine(c, u)
+                q, q2 = op.affine(c, u), op.affine(c, u)
                 qr = stencil_affine_reference(op.W[dtype], c, u)
                 torch.cuda.synchronize()
                 err = rel_err(q, qr)
                 if not err <= REL_TOL[dtype]:
                     fail(f"stencil kernel vs plain at {nx}x{ny} B={B} {dtype}: rel err {err}")
+                if not torch.equal(q, q2):
+                    fail(f"stencil kernel at {nx}x{ny} B={B} {dtype}: two calls differ")
                 worst[dtype] = max(worst.get(dtype, 0.0), err)
                 if dtype == torch.float32 and (nx, B) == STENCIL_MAIN:
                     out["stencil_abs_err"] = float((q - qr).abs().max())
                     stencil_case = (op, c64, u64)
     stencil_affine_matvec.launches = saved
     print(f"[8 stencil] ok: max rel err vs plain (of max|q|) f32 {worst[torch.float32]:.3e} "
-          f"(tol 2e-5), f64 {worst[torch.float64]:.3e} (tol 1e-12) over grids {STENCIL_GRIDS} "
-          f"x B in {STENCIL_BATCHES}", flush=True)
+          f"(tol 2e-5), f64 {worst[torch.float64]:.3e} (tol 1e-12), two calls bitwise equal, "
+          f"over grids {STENCIL_GRIDS} x B in {STENCIL_BATCHES}", flush=True)
 
     # 9. the two-level solve at 160x80 against the JAX package's f64 golden
     with open(os.path.join(ROOT, "tests", "fixtures", "scaled_160x80_golden.json")) as f:
@@ -733,19 +780,22 @@ def scaled_path(dev, card):
     saved = stencil_affine_matvec.launches
     for dtype in (torch.float32, torch.float64):
         u, c = u64.to(dtype), c64.to(dtype)
-        k_ms = time_ms(lambda: op.affine(c, u))
-        p_ms = time_ms(lambda: stencil_affine_reference(op.W[dtype], c, u), warmup=5, reps=50)
+        t = stencil_times(lambda: op.affine(c, u),
+                          lambda: stencil_affine_reference(op.W[dtype], c, u),
+                          stencil_least_time(op.planes[dtype], c, u))
         K, uT = assembled_csr(model, dtype), u.T.contiguous()
         lib_err = rel_err(library_affine(K, c, uT).T, op.affine(c, u))
         if not lib_err <= REL_TOL[dtype]:
             fail(f"cuSPARSE yardstick vs stencil kernel at 160x80 {dtype}: rel err {lib_err}")
-        l_ms = time_ms(lambda: library_affine(K, c, uT), warmup=5, reps=50)
-        out["stencil_ms"][dtype] = (k_ms, p_ms, l_ms)
-        if dtype == torch.float32:
-            out["stencil_bound"] = stencil_least_time(op.planes[dtype], c, u)
-        print(f"[12 times] stencil matvec (B=256, 160x80) {dtype}: kernel {k_ms:.4f} ms, plain "
-              f"{p_ms:.4f} ms, cuSPARSE yardstick {l_ms:.4f} ms (rel err {lib_err:.1e}), on "
-              f"{card}", flush=True)
+        t["library_ms"] = time_ms(lambda: library_affine(K, c, uT), warmup=5, reps=50)
+        out["stencil_ms"][dtype] = t
+        plan = launch_plan(u.shape[0], *op.planes[dtype].shape[::2], dtype, dev)
+        print(f"[12 times] stencil matvec (B=256, 160x80) {dtype}, rows {plan.rows}, runs of "
+              f"{plan.run} (band, sample) pairs, {plan.blocks} blocks: device kernel "
+              f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms; eager kernel "
+              f"{t['ms_eager']:.4f} ms; bound {t['bound_ms']:.4f} ms ({t['bound_by']}), "
+              f"{100 * t['share_of_bound']:.1f} % of it; cuSPARSE yardstick (eager) "
+              f"{t['library_ms']:.4f} ms (rel err {lib_err:.1e}), on {card}", flush=True)
     stencil_affine_matvec.launches = saved
     thetas = torch.randn((256, 2), generator=torch.Generator().manual_seed(5),
                          dtype=torch.float64).to(dev)
@@ -1021,8 +1071,8 @@ def study_path(dev, card):
 
     out = {}
     f32, f64 = torch.float32, torch.float64
-    # 24. the rows-per-block option against the plain version (REL_TOL) and
-    #     bitwise against the one-row kernel, on the same inputs
+    # 24. a forced rows_per_block against the plain version (REL_TOL) and
+    #     bitwise against the launch plan's rows, on the same inputs
     saved = (stencil_affine_matvec.launches, stencil_affine_matvec.rows_launches)
     stencil_affine_matvec.rows_launches = 0
     ops, tables, worst = {}, {}, {}
@@ -1047,8 +1097,8 @@ def study_path(dev, card):
                         fail(f"rows_per_block={rpp} vs plain at {nx}x{ny} B={B} {dtype}: "
                              f"rel err {err}")
                     if not torch.equal(q1, qr):
-                        fail(f"rows_per_block={rpp} vs one-row kernel at {nx}x{ny} B={B} {dtype}: "
-                             f"max abs diff {float((q1 - qr).abs().max())}")
+                        fail(f"rows_per_block={rpp} vs the plan's rows at {nx}x{ny} B={B} "
+                             f"{dtype}: max abs diff {float((q1 - qr).abs().max())}")
                     worst[dtype] = max(worst.get(dtype, 0.0), err)
                     if (nx, B, rpp) == (*STENCIL_MAIN, 3) and dtype == f32:
                         out["rows_abs_err"] = float((qr - qp).abs().max())
@@ -1058,7 +1108,7 @@ def study_path(dev, card):
     if rows_checked <= 0:
         fail("phase 24 launched the rows-per-block kernel no time")
     print(f"[24 rows-per-block] ok: max rel err vs plain f32 {worst[f32]:.3e} (tol 2e-5), f64 "
-          f"{worst[f64]:.3e} (tol 1e-12), and bitwise equal to the one-row kernel, over grids "
+          f"{worst[f64]:.3e} (tol 1e-12), and bitwise equal to the plan's rows, over grids "
           f"{STENCIL_GRIDS} x B in {STENCIL_BATCHES} x rows_per_block in {ROWS_PER_BLOCK} "
           f"({rows_checked} launches)", flush=True)
     op = ops[STENCIL_MAIN[0], STENCIL_MAIN[0] // 2]
@@ -1068,14 +1118,16 @@ def study_path(dev, card):
         u, c = u64.to(dtype), c64.to(dtype)
         if dtype == f32:
             out["stencil_bound"] = stencil_least_time(op.planes[dtype], c, u)
-        times = {rpp: time_ms(lambda rpp=rpp: op.affine(c, u, rows_per_block=rpp))
-                 for rpp in (1, 3, 8, 1)}  # one-row timed first and last
-        p_ms = time_ms(lambda: stencil_affine_reference(op.W[dtype], c, u), warmup=5, reps=50)
+        times = {}
+        for rpp in (None, 1, 3, 8, None):  # device time; the plan's rows first and last
+            ms = graph_ms(lambda rpp=rpp: op.affine(c, u, rows_per_block=rpp))
+            times[rpp] = min(times.get(rpp, ms), ms)
+        p_ms = graph_ms(lambda: stencil_affine_reference(op.W[dtype], c, u), reps=5, replays=2)
         out["rows_ms"][dtype] = (times, p_ms)
-        print(f"[24 times] stencil matvec (B=256, 160x80) {dtype}: rows_per_block 3 "
-              f"{times[3]:.4f} ms, 8 {times[8]:.4f} ms, one-row {times[1]:.4f} ms, plain "
-              f"{p_ms:.4f} ms; bound {out['stencil_bound'][0]:.4f} ms "
-              f"({out['stencil_bound'][1]}, f32), on {card}", flush=True)
+        print(f"[24 times] stencil matvec (B=256, 160x80) {dtype}, device time: rows_per_block "
+              f"3 {times[3]:.4f} ms, 8 {times[8]:.4f} ms, 1 {times[1]:.4f} ms, the plan's "
+              f"{times[None]:.4f} ms, plain {p_ms:.4f} ms; bound {out['stencil_bound'][0]:.4f} "
+              f"ms ({out['stencil_bound'][1]}, f32), on {card}", flush=True)
     stencil_affine_matvec.launches, stencil_affine_matvec.rows_launches = saved
 
     # 25. the banded tensor-core kernel against its plain version and the
@@ -1238,6 +1290,7 @@ def box3d_path(dev, card):
     from vbicm_tpu_torch.ops.spectral_kernel import spectral_apply_batched
     from vbicm_tpu_torch.ops.stencil3d import StencilOperator3d
     from vbicm_tpu_torch.ops.stencil3d_kernel import (
+        launch_plan_3d,
         stencil3d_affine_matvec,
         stencil3d_affine_reference,
     )
@@ -1261,12 +1314,14 @@ def box3d_path(dev, card):
             c64 = torch.as_tensor(rng.uniform(1.0, 3.0, (B, 2)), device=dev)
             for dtype in (torch.float32, torch.float64):
                 u, c = u64.to(dtype), c64.to(dtype)
-                q = op.affine(c, u)
+                q, q2 = op.affine(c, u), op.affine(c, u)
                 qr = stencil3d_affine_reference(W[dtype], c, u)
                 torch.cuda.synchronize()
                 err = rel_err(q, qr)
                 if not err <= REL_TOL[dtype]:
                     fail(f"3-D stencil kernel vs plain at {cells} B={B} {dtype}: rel err {err}")
+                if not torch.equal(q, q2):
+                    fail(f"3-D stencil kernel at {cells} B={B} {dtype}: two calls differ")
                 worst[dtype] = max(worst.get(dtype, 0.0), err)
                 if dtype == torch.float32 and (cells, B) == BOX_MAIN:
                     out["stencil3d_abs_err"] = float((q - qr).abs().max())
@@ -1275,8 +1330,8 @@ def box3d_path(dev, card):
         del W
     stencil3d_affine_matvec.launches = saved
     print(f"[13 stencil3d] ok: max rel err vs plain (of max|q|) f32 {worst[torch.float32]:.3e} "
-          f"(tol 2e-5), f64 {worst[torch.float64]:.3e} (tol 1e-12) over grids {BOX_GRIDS} "
-          f"x B in {STENCIL_BATCHES}", flush=True)
+          f"(tol 2e-5), f64 {worst[torch.float64]:.3e} (tol 1e-12), two calls bitwise equal, "
+          f"over grids {BOX_GRIDS} x B in {STENCIL_BATCHES}", flush=True)
 
     # 14. the box two-level solve against the JAX package's f64 golden. Two
     #     refinements are held to 1e-6 for "train" as for "bench". The
@@ -1393,37 +1448,41 @@ def box3d_path(dev, card):
     steps = math.ceil(ds.n_sam / tcfg.batch_size) * (tcfg.num_epoch1 - 1)
     print(f"[17 times] 3-D step-1 train steps/s (32x8x8, B=64x4, f32 CG + 1 f64 refinement, "
           f"epoch 2): {steps / sum(res.epoch_times_step1[1:]):.3f} on {card}", flush=True)
-    out["stencil3d_ms"], out["stencil3d_bound"] = {}, {}
+    out["stencil3d_ms"] = {}
     saved = stencil3d_affine_matvec.launches
     for cells in ((32, 8, 8), (64, 16, 16)):
         op = ops[cells]
         c64, u64 = cases[cells]
         for dtype in (torch.float32, torch.float64):
             u, c, W = u64.to(dtype), c64.to(dtype), op.W.to(dev, dtype)
-            k_ms = time_ms(lambda: op.affine(c, u), warmup=10, reps=100)
-            p_ms = time_ms(lambda: stencil3d_affine_reference(W, c, u), warmup=3, reps=20)
+            t = stencil_times(lambda: op.affine(c, u),
+                              lambda: stencil3d_affine_reference(W, c, u),
+                              stencil_least_time(op.planes[dtype], c, u))
             K, uT = assembled_csr(models[cells], dtype), u.T.contiguous()
             lib_err = rel_err(library_affine(K, c, uT).T, op.affine(c, u))
             if not lib_err <= REL_TOL[dtype]:
                 fail(f"cuSPARSE yardstick vs 3-D stencil kernel at {cells} {dtype}: rel err "
                      f"{lib_err}")
-            l_ms = time_ms(lambda: library_affine(K, c, uT), warmup=3, reps=20)
-            del K, uT
-            out["stencil3d_ms"][cells, dtype] = (k_ms, p_ms, l_ms)
-            nbytes = (2 * u.numel() + op.planes[dtype].numel() + c.numel()) * u.element_size()
-            if dtype == torch.float32:
-                out["stencil3d_bound"][cells] = stencil_least_time(op.planes[dtype], c, u)
+            t["library_ms"] = time_ms(lambda: library_affine(K, c, uT), warmup=3, reps=20)
+            del K, uT, W
+            out["stencil3d_ms"][cells, dtype] = t
+            plan = launch_plan_3d(u.shape[0], cells[2] + 1, cells[1] + 1, 3 * (cells[0] + 1),
+                                  dtype, dev)
             print(f"[17 times] 3-D stencil matvec (B=256, {cells[0]}x{cells[1]}x{cells[2]}) "
-                  f"{dtype}: kernel {k_ms:.4f} ms ({nbytes / k_ms / 1e9:.3f} TB/s of u, q and "
-                  f"planes once), plain {p_ms:.4f} ms, cuSPARSE yardstick {l_ms:.4f} ms (rel "
-                  f"err {lib_err:.1e}), on {card}", flush=True)
+                  f"{dtype}, {plan.samples} samples a thread x {plan.groups} groups, "
+                  f"{plan.blocks} blocks: device kernel {t['ms']:.4f} ms, plain "
+                  f"{t['plain_ms']:.4f} ms; "
+                  f"eager kernel {t['ms_eager']:.4f} ms; bound {t['bound_ms']:.4f} ms "
+                  f"({t['bound_by']}), {100 * t['share_of_bound']:.1f} % of it; cuSPARSE "
+                  f"yardstick (eager) {t['library_ms']:.4f} ms (rel err {lib_err:.1e}), on "
+                  f"{card}", flush=True)
     stencil3d_affine_matvec.launches = saved
     out["spectral_ms"] = {dtype: spectral_times(BOX_COARSE_SHAPE, dtype, dev, card, 17, 100)
                           for dtype in (torch.float32, torch.float64)}
     refine = 2
     fh, solve = fhs["bench", refine]["fh"], fhs["bench", refine]["solve"]
-    f64_ms = out["stencil3d_ms"][(64, 16, 16), torch.float64][0]
-    f32_ms = out["stencil3d_ms"][(64, 16, 16), torch.float32][0]
+    f64_ms = out["stencil3d_ms"][(64, 16, 16), torch.float64]["ms"]
+    f32_ms = out["stencil3d_ms"][(64, 16, 16), torch.float32]["ms"]
     for B in BOX_FH_BATCHES:
         th = torch.randn((B, 2), generator=torch.Generator().manual_seed(5),
                          dtype=torch.float64).to(dev)

@@ -97,7 +97,7 @@ def main(argv=None):
     scale = float(q_exact.norm())
 
     impls = {"plain_stencil_f32": lambda: stencil_affine_reference(op.W[f32], c32, u32),
-             "stencil_onerow": lambda: op.affine(c32, u32)}
+             "stencil_onerow": lambda: op.affine(c32, u32, rows_per_block=1)}
     for r in ROWS_PER_BLOCK:
         impls[f"stencil_rows{r}"] = lambda r=r: op.affine(c32, u32, rows_per_block=r)
     impls["mxu_f32"] = lambda: stencil_affine_matvec_mxu(mf32, c32, u32, NY, NX, "f32")

@@ -21,6 +21,7 @@ from vbicm_tpu.ops.stencil_pallas import (
     stencil_affine_matvec_pallas,
     stencil_affine_matvec_pallas_mr,
 )
+from vbicm_tpu_torch import _build
 from vbicm_tpu_torch.mesh import cooks_membrane_mesh
 from vbicm_tpu_torch.model import build_fem_model
 from vbicm_tpu_torch.ops.assembly import element_affine_matvec, element_matvec
@@ -32,12 +33,14 @@ from vbicm_tpu_torch.ops.stencil import (
 )
 from vbicm_tpu_torch.ops.stencil_kernel import (
     pack_w_interleaved,
-    sample_tile,
+    plan_tiling,
     stencil_affine_matvec,
     stencil_affine_reference,
 )
 
 GRIDS = [(8, 4), (32, 16)]
+SMEM_BYTES = 232448  # shared memory one H100 block may use (227 KB)
+MAX_THREADS = {4: 512, 8: 256}  # the kernel's launch bounds, by itemsize
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -162,21 +165,129 @@ def test_wrapper_refuses_tensors_off_cpu_and_cuda():
     assert stencil_affine_matvec.launches == 0
 
 
-def test_sample_tile_fits_shared_memory():
-    assert sample_tile(322, 256, 8) == 8  # 160x80 in float64: 63 KB
-    assert sample_tile(322, 5, 4) == 5
-    assert sample_tile(2000, 256, 8) == 4
-    with pytest.raises(ValueError):
-        sample_tile(10000, 1, 8)
+def _h100_fit(NX2, itemsize):
+    """A model of what the library's vbicm_stencil_affine_fit_* reports on
+    an H100 for rows of NX2 lanes: csrc/stencil_affine.cu's launch geometry
+    (a thread a node, a ring of 8 staged samples of rt + 2 rows with a halo
+    node each side and (c0, c1)), its launch bounds, 227 KB of shared memory
+    a block, and the blocks an SM holds by its registers (128 a thread in
+    float32, 224 in float64, as ptxas allocates them) and shared memory."""
+    nxn = NX2 // 2
+
+    def fit(rt):
+        threads = -(-rt * nxn // 32) * 32
+        smem = 8 * ((rt + 2) * (nxn + 2) + 1) * 2 * itemsize
+        if threads > MAX_THREADS[itemsize] or smem > SMEM_BYTES:
+            return None
+        regs = {4: 128, 8: 224}[itemsize] * threads
+        return threads, smem, min(65536 // regs, 233472 // (smem + 1024), 32)
+
+    return fit
 
 
-@pytest.mark.parametrize("rows,itemsize,tile", [(1, 8, 8), (3, 4, 8), (8, 8, 8), (10, 8, 7),
-                                                (40, 8, 2)])
-def test_sample_tile_of_the_rows_per_block_option(rows, itemsize, tile):
-    # 160x80: 8 rows a block in float64 stage 8 x 10 x 328 values, 210 KB
-    # of the 227 KB; at 10 rows the tile shrinks
-    assert sample_tile(322, 256, itemsize, rows) == tile
-    assert tile * ((rows + 2) * 328 + 2) * itemsize <= 232448
+def _plan(B, NY, NX2, itemsize, rows_per_block=None, sms=132):
+    return plan_tiling(B, NY, NX2, _h100_fit(NX2, itemsize), sms, rows_per_block)
+
+
+def _covered(B, NY, NX2, plan):
+    """How often each (sample, grid row, node) is stored by a launch with
+    ``plan``: the kernel's block, run, sub-band and thread index arithmetic
+    (csrc/stencil_affine.cu), replayed on the host."""
+    nxn = NX2 // 2
+    hits = np.zeros((B, NY, nxn), dtype=np.int64)
+    total = -(-NY // plan.rows) * B
+    for block in range(plan.blocks):
+        wk, wend = block * plan.run, min(total, (block + 1) * plan.run)
+        while wk < wend:
+            band, s0 = divmod(wk, B)
+            ns = min(B - s0, wend - wk)
+            wk += ns
+            yb0 = band * plan.rows
+            yend = min(yb0 + plan.rows, NY)
+            for yb in range(yb0, yend, plan.rows_at_once):
+                rows = min(plan.rows_at_once, yend - yb)
+                for tid in range(plan.threads):
+                    rt, x = divmod(tid, nxn)
+                    if rt < rows:
+                        hits[s0:s0 + ns, yb + rt, x] += 1
+    return hits
+
+
+@pytest.mark.parametrize("B,NY,NX2,itemsize,rows,sms", [
+    (256, 81, 322, 4, None, 132), (256, 81, 322, 8, None, 132), (300, 81, 322, 4, None, 50),
+    (5, 81, 322, 4, 2, 132), (1, 5, 18, 8, 4, 3), (16, 17, 66, 4, 8, 7), (8, 81, 322, 8, 8, 132)])
+def test_launch_plan_covers_every_output_once(B, NY, NX2, itemsize, rows, sms):
+    """Ragged batches (1, 5, 300), bands that do not divide NY (81 rows in
+    bands of 2 or 8, 17 in 8, 5 in 4), runs that cross bands (cards of 3,
+    7 and 50 SMs), sub-bands (8 rows a band with fewer computed at once)."""
+    plan = _plan(B, NY, NX2, itemsize, rows, sms)
+    assert np.array_equal(_covered(B, NY, NX2, plan), np.ones((B, NY, NX2 // 2)))
+
+
+@pytest.mark.parametrize("B,NY,NX2,itemsize", [(256, 81, 322, 4), (300, 81, 322, 4),
+                                               (256, 81, 322, 8), (8, 257, 512, 8),
+                                               (16, 9, 1024, 4)])
+def test_launch_plan_fits_shared_memory_and_threads(B, NY, NX2, itemsize):
+    # the largest rows: 256 nodes (float64), 512 (float32)
+    fit = _h100_fit(NX2, itemsize)
+    plan = plan_tiling(B, NY, NX2, fit, 132)
+    assert (plan.threads, plan.smem_bytes) == fit(plan.rows_at_once)[:2]
+    assert plan.smem_bytes <= SMEM_BYTES
+    assert plan.threads % 32 == 0 and plan.threads <= MAX_THREADS[itemsize]
+    assert plan.rows_at_once * (NX2 // 2) <= plan.threads
+    pairs = -(-NY // plan.rows) * B
+    assert plan.blocks == -(-pairs // plan.run) and (plan.blocks - 1) * plan.run < pairs
+
+
+@pytest.mark.parametrize("rows", [1, 2, 3, 4, 8, 100])
+@pytest.mark.parametrize("itemsize", [4, 8])
+def test_launch_plan_honours_a_forced_rows_per_block(rows, itemsize):
+    # 160x80: float32 computes up to 3 rows of 161 nodes at once, float64
+    # one; a band of more is taken in sub-bands; a band is at most the grid
+    plan = _plan(256, 81, 322, itemsize, rows)
+    assert plan.rows == min(rows, 81)
+    assert plan.rows_at_once == min(rows, 81, {4: 3, 8: 1}[itemsize])
+
+
+@pytest.mark.parametrize("B,itemsize,waves", [(256, 4, 1), (8, 4, 1), (256, 8, 2), (16, 8, 1),
+                                              (8, 8, 1)])
+def test_launch_plan_takes_two_waves_only_for_long_runs_of_lone_small_blocks(B, itemsize, waves):
+    # 160x80: one block an SM either way, 16 warps in float32, 6 in float64;
+    # float64 runs 158 pairs a block in one wave at B = 256, 10 at B = 16
+    plan = _plan(B, 81, 322, itemsize)
+    pairs = -(-81 // plan.rows) * B
+    assert plan.run == -(-pairs // (waves * 132))
+
+
+@pytest.mark.parametrize("err,want", [(0, (3, 4, 5)), (1, None), (700, RuntimeError)])
+def test_kernel_fit_reads_the_entry_points_answer(err, want):
+    """The plans read a fit entry point's ints on success, no fit on
+    cudaErrorInvalidValue, and raise on any other CUDA error."""
+    def entry(nx2, rt, out):
+        out[0], out[1], out[2] = 3, 4, 5
+        return err
+
+    if want is RuntimeError:
+        with pytest.raises(RuntimeError, match="700"):
+            _build.kernel_fit(entry, 3, 322, 1)
+    else:
+        assert _build.kernel_fit(entry, 3, 322, 1) == want
+
+
+@pytest.mark.parametrize("NX2,itemsize", [(1026, 4), (514, 8), (2000, 8), (10000, 4)])
+def test_a_row_too_long_for_one_block_raises(NX2, itemsize):
+    with pytest.raises(ValueError, match="too long"):
+        _plan(4, 9, NX2, itemsize)
+
+
+def test_the_kernel_skips_only_taps_whose_planes_are_zero():
+    """The kernel reads an even lane's taps d = 1..6 and an odd lane's
+    d = 0..5 (csrc/stencil_affine.cu): the others are zero in every packed
+    plane, so skipping them leaves the one-row kernel's sums bit for bit."""
+    model = build_fem_model(cooks_membrane_mesh(8, 4), device="cpu")
+    planes = pack_w_interleaved(build_stencil_tables(model, 8, 4)).reshape(5, 6, 7, 18)
+    assert not planes[:, :, 0, 0::2].any() and not planes[:, :, 6, 1::2].any()
+    assert planes[:, :, 1:, 0::2].any() and planes[:, :, :6, 1::2].any()
 
 
 @pytest.mark.parametrize("rpp", [3, 4])

@@ -8,9 +8,9 @@
 - ``box3d``: the same step on the 3-D trainer's 32x8x8 hex8 cantilever
   (8,019 dofs, examples/train_scaled_3d_torch.py: box two-level solver,
   input standardization, per-sample pairing);
-- ``box3d_fh``: one batch of 256 observation-operator solves on the 64x16x16
-  box (56,355 dofs; float32 CG at tol 3e-3 + two float64 refinements);
-- ``element_fh`` and ``stencil_fh``: one batch of 256 observation-operator
+- ``box3d_fh``: one batch of --batch (256) observation-operator solves on the
+  64x16x16 box (56,355 dofs; float32 CG at tol 3e-3 + two float64 refinements);
+- ``element_fh`` and ``stencil_fh``: one batch of --batch (256) observation-operator
   solves on Cook's 160x80 through the two-level solver's element path
   (the element kernel, gather transfers) or its stencil path (float32 CG
   at tol 3e-3 + one refinement), as chip_smoke.py times them.
@@ -23,6 +23,7 @@ of the traced wall time. Writes the Chrome trace to --trace.
     python tools/profile_scaled_torch.py --steps 3 --trace scaled_step_trace.json
     python tools/profile_scaled_torch.py --config box3d --steps 3
     python tools/profile_scaled_torch.py --config element_fh --steps 2
+    python tools/profile_scaled_torch.py --config box3d_fh --batch 64 --steps 3
 """
 import os as _os, sys as _sys
 _sys.path.insert(0, _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))))
@@ -135,11 +136,11 @@ def box3d_step(torch, dev, residual):
     return lambda: trainer.update_step1(net, opt, y, e)
 
 
-def box3d_fh(torch, dev, residual):
-    """One batch of 256 observation-operator solves at 64x16x16 (coarse
-    16x4x4, ratio 4, lx = 4), as chip_smoke.py times it."""
+def box3d_fh(torch, dev, residual, batch):
+    """One batch of observation-operator solves at 64x16x16 (coarse 16x4x4,
+    ratio 4, lx = 4), as chip_smoke.py times it."""
     fh, _ = _box3d(torch, dev, (64, 16, 16), 4, residual, 2, 1500, lx=4.0)
-    thetas = torch.as_tensor(np.random.default_rng(5).normal(size=(256, 2)), device=dev)
+    thetas = torch.as_tensor(np.random.default_rng(5).normal(size=(batch, 2)), device=dev)
 
     def step():
         with torch.no_grad():
@@ -148,8 +149,8 @@ def box3d_fh(torch, dev, residual):
     return step
 
 
-def cooks_fh(torch, dev, residual, use_stencil):
-    """One batch of 256 observation-operator solves at Cook's 160x80
+def cooks_fh(torch, dev, residual, batch, use_stencil):
+    """One batch of observation-operator solves at Cook's 160x80
     (coarse 40x20) through the two-level solver's element or stencil
     path."""
     from vbicm_tpu_torch.config import ProblemConfig
@@ -165,7 +166,7 @@ def cooks_fh(torch, dev, residual, use_stencil):
                                   refine_iters=1, tol=3e-3, maxiter=400, use_stencil=use_stencil,
                                   refine_residual=residual)
     fh = make_fh_fun(model, cfg, solve_free=solve)
-    thetas = torch.as_tensor(np.random.default_rng(5).normal(size=(256, 2)), device=dev)
+    thetas = torch.as_tensor(np.random.default_rng(5).normal(size=(batch, 2)), device=dev)
 
     def step():
         with torch.no_grad():
@@ -180,6 +181,7 @@ def main():
     ap.add_argument("--config", choices=("160x80", "box3d", "box3d_fh", "element_fh",
                                          "stencil_fh"), default="160x80")
     ap.add_argument("--split-f32", action="store_true")
+    ap.add_argument("--batch", type=int, default=256, help="solves a batch (the fh configs)")
     ap.add_argument("--trace", type=str, default=None)
     args = ap.parse_args()
 
@@ -193,9 +195,10 @@ def main():
     card = card_line()
     print(card, flush=True)
     residual = "split_f32" if args.split_f32 else "f64"
-    make = {"160x80": cooks_step, "box3d": box3d_step, "box3d_fh": box3d_fh,
-            "element_fh": lambda *a: cooks_fh(*a, use_stencil=False),
-            "stencil_fh": lambda *a: cooks_fh(*a, use_stencil=True)}[args.config]
+    make = {"160x80": cooks_step, "box3d": box3d_step,
+            "box3d_fh": lambda *a: box3d_fh(*a, args.batch),
+            "element_fh": lambda *a: cooks_fh(*a, args.batch, use_stencil=False),
+            "stencil_fh": lambda *a: cooks_fh(*a, args.batch, use_stencil=True)}[args.config]
     step = make(torch, dev, residual)
 
     for _ in range(2):
@@ -229,6 +232,7 @@ def main():
     total = sum(v[0] for v in by_family.values()) / 1e6
     print(json.dumps({
         "card": card, "config": args.config, "steps": args.steps, "residual": residual,
+        "batch": args.batch if args.config.endswith("_fh") else None,
         "traced_wall_s": wall, "untraced_step_s": untraced,
         "device_ops": len(kernels), "device_busy_s": busy,
         "device_idle_share": 1.0 - busy / wall,

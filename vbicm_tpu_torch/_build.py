@@ -1,13 +1,12 @@
 """Build and load the package's CUDA kernels.
 
-The sources under ``csrc/`` (the spectral apply, the 2-D stencil matvec
-with its rows-per-block option, the banded tensor-core stencil, the 3-D
-stencil matvec, the element matvec and the FMA-ceiling probe) have a plain
-C interface; shared device code sits in ``csrc/*.cuh`` headers. At first
-use each source is compiled with ``nvcc`` for ``sm_90a``, all at once in
-parallel processes, and the objects are linked into one shared library
-under ``build/vbicm_tpu_torch/`` at the root of the checkout, loaded with
-``ctypes``. The library's file name carries a hash of the sources, headers
+The sources under ``csrc/`` (the spectral apply, the 2-D stencil matvec,
+the banded tensor-core stencil, the 3-D stencil matvec, the element matvec
+and the FMA-ceiling probe) have a plain C interface; shared device code
+sits in ``csrc/*.cuh`` headers. At first use each source is compiled with
+``nvcc`` for ``sm_90a``, all at once in parallel processes, and the
+objects are linked into one shared library under ``build/vbicm_tpu_torch/``
+at the root of the checkout, loaded with ``ctypes``. The library's file name carries a hash of the sources, headers
 and flags, so an edited source or header builds anew and a stale library is
 never loaded. Nothing is fetched; a failed build raises.
 """
@@ -31,16 +30,18 @@ NVCC_FLAGS = (
 
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
+_INTS = ctypes.POINTER(ctypes.c_int)
+CUDA_ERROR_INVALID_VALUE = 1  # cudaErrorInvalidValue
 _SIGNATURES = {
     # (V, g, coeffs, b, x, a, ws, B, n, bm, bn, split, vec, stream) -> cudaError_t
     "vbicm_spectral_apply_f32": [_PTR] * 7 + [_INT] * 6 + [_PTR],
     "vbicm_spectral_apply_f64": [_PTR] * 7 + [_INT] * 6 + [_PTR],
-    # (w, coeffs, u, q, B, NY, NX2, TS, threads, stream) -> cudaError_t
-    "vbicm_stencil_affine_f32": [_PTR] * 4 + [_INT] * 5 + [_PTR],
-    "vbicm_stencil_affine_f64": [_PTR] * 4 + [_INT] * 5 + [_PTR],
-    # (w, coeffs, u, q, B, NY, NX2, TS, RPP, threads, stream) -> cudaError_t
-    "vbicm_stencil_affine_rows_f32": [_PTR] * 4 + [_INT] * 6 + [_PTR],
-    "vbicm_stencil_affine_rows_f64": [_PTR] * 4 + [_INT] * 6 + [_PTR],
+    # (w, coeffs, u, q, B, NY, NX2, R, RT, W, stream) -> cudaError_t
+    "vbicm_stencil_affine_f32": [_PTR] * 4 + [_INT] * 6 + [_PTR],
+    "vbicm_stencil_affine_f64": [_PTR] * 4 + [_INT] * 6 + [_PTR],
+    # (NX2, RT, out[3]) -> cudaError_t
+    "vbicm_stencil_affine_fit_f32": [_INT, _INT, _INTS],
+    "vbicm_stencil_affine_fit_f64": [_INT, _INT, _INTS],
     # (m_hi, m_lo, coeffs, u, q, B, NY, NX2, stream) -> cudaError_t; the
     # float32 table's entry point takes its one table as m_hi
     "vbicm_stencil_mxu_bf16x3": [_PTR] * 5 + [_INT] * 3 + [_PTR],
@@ -48,9 +49,12 @@ _SIGNATURES = {
     # (a, b, out, B, NY, XLP, nfma, stream) -> cudaError_t
     "vbicm_fma_probe_f32": [_PTR] * 3 + [_INT] * 4 + [_PTR],
     "vbicm_fma_probe_f64": [_PTR] * 3 + [_INT] * 4 + [_PTR],
-    # (w, coeffs, u, q, B, NZ, NY, NX3, stream) -> cudaError_t
-    "vbicm_stencil3d_affine_f32": [_PTR] * 4 + [_INT] * 4 + [_PTR],
-    "vbicm_stencil3d_affine_f64": [_PTR] * 4 + [_INT] * 4 + [_PTR],
+    # (w, coeffs, u, q, B, NZ, NY, NX3, G, stream) -> cudaError_t
+    "vbicm_stencil3d_affine_f32": [_PTR] * 4 + [_INT] * 5 + [_PTR],
+    "vbicm_stencil3d_affine_f64": [_PTR] * 4 + [_INT] * 5 + [_PTR],
+    # (NX3, G, out[5]) -> cudaError_t
+    "vbicm_stencil3d_affine_fit_f32": [_INT, _INT, _INTS],
+    "vbicm_stencil3d_affine_fit_f64": [_INT, _INT, _INTS],
     # (ke, lm, row_ptr, ent, coeffs, u, q, B, ndof, nele, edof, stream) -> cudaError_t
     "vbicm_element_affine_f32": [_PTR] * 7 + [_INT] * 4 + [_PTR],
     "vbicm_element_affine_f64": [_PTR] * 7 + [_INT] * 4 + [_PTR],
@@ -120,3 +124,17 @@ def load_library():
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib, seconds, log
+
+
+def kernel_fit(fn, n, *args):
+    """What a ``*_fit_*`` entry point reports for a launch on the current
+    device, as a tuple of its ``n`` ints; None where the kernel cannot take
+    that launch (the entry point returns cudaErrorInvalidValue). Raises
+    ``RuntimeError`` on any other CUDA error."""
+    out = (ctypes.c_int * n)()
+    err = fn(*args, out)
+    if err == CUDA_ERROR_INVALID_VALUE:
+        return None
+    if err != 0:
+        raise RuntimeError(f"{fn.__name__}{args} failed with CUDA error {err}")
+    return tuple(out)

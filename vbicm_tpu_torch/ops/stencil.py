@@ -74,10 +74,10 @@ class StencilOperator:
         self.planes = {dt: torch.as_tensor(planes, dtype=dt, device=device).contiguous()
                        for dt in (torch.float32, torch.float64)}
 
-    def affine(self, coeffs, u, rows_per_block: int = 1):
+    def affine(self, coeffs, u, rows_per_block=None):
         """``K(c) u`` for coeffs (B, 2) and u (B, ndof), in u's dtype: the
-        kernel on CUDA tensors (``rows_per_block`` grid rows a block), its
-        plain version on CPU tensors."""
+        kernel on CUDA tensors (``rows_per_block`` grid rows a block, None:
+        its launch plan's), its plain version on CPU tensors."""
         dt = u.dtype
         return stencil_affine_matvec(self.W[dt], self.planes[dt],
                                      coeffs.to(dt).contiguous(), u.contiguous(),

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from .stencil3d_kernel import (
-    pack_w_interleaved_3d,
+    pack_w_nodes_3d,
     stencil3d_affine_matvec,
     stencil3d_part_reference,
 )
@@ -60,7 +60,8 @@ def stencil_diagonal_3d(W) -> np.ndarray:
 
 
 class StencilOperator3d:
-    """The hex8-box operator of one model: the kernel's packed ``planes`` on
+    """The hex8-box operator of one model: the kernel's node-major
+    coefficients ``planes`` (``ops.stencil3d_kernel.pack_w_nodes_3d``) on
     the model's device, by dtype (float32, float64); the block tables ``W``
     (2, NZ, NY, NX, 3, 3, 3, 3, 3), float64 on the host, which the plain
     version reads and the kernel does not; and the float64 diagonal
@@ -70,10 +71,10 @@ class StencilOperator3d:
         if W is None:
             W = build_stencil_tables_3d(model, nx, ny, nz)
         device = model.device
-        planes = pack_w_interleaved_3d(W)
         self.W = torch.as_tensor(W, dtype=torch.float64)
         self.diag = torch.as_tensor(stencil_diagonal_3d(W), device=device)  # (P, ndof) f64
-        self.planes = {dt: torch.as_tensor(planes, dtype=dt, device=device).contiguous()
+        self.planes = {dt: torch.as_tensor(pack_w_nodes_3d(W, torch.finfo(dt).bits // 8),
+                                           dtype=dt, device=device).contiguous()
                        for dt in (torch.float32, torch.float64)}
         self._host_tables = {torch.float64: self.W}
 

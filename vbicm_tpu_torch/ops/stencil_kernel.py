@@ -10,23 +10,105 @@ unpacked block tables W (2, NY, NX, 3, 3, 2, 2) of ``ops.stencil``, so a
 fault in the packing cannot hide in both. On CPU tensors the wrapper runs the
 plain version; on CUDA tensors it launches the kernel or raises.
 
-``rows_per_block`` > 1 selects the kernel's rows-per-block option (the
-counterpart of ``stencil_affine_matvec_pallas_mr``): a block stages its
-rows + 2 u rows once and overlaps the next row's copy with the current row's
-arithmetic. Its result is bitwise equal to the one-row kernel's.
+A launch splits the (band of R grid rows, sample) pairs into equal runs, a
+block each, and a thread takes one node of one row (:func:`launch_plan`).
+``rows_per_block`` forces R (the counterpart of
+``stencil_affine_matvec_pallas_mr``'s rows per program); every R and run
+gives the same bits. What a block of a tiling takes (threads, shared memory)
+and how many of them an SM holds are the built kernel's answers on the card
+(``vbicm_stencil_affine_fit_*``), not numbers kept here.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
 
 from .. import _build
 
-# Shared memory one block may use on Hopper (227 KB); the kernel stages
-# TS * (rows_per_block + 2) rows of 2NX + 6 values and TS coefficient pairs.
-_SMEM_BYTES = 232448
-_SAMPLE_TILE = 8
-_MAX_THREADS = 512
+_ROWS = 3  # rows a band when not forced (at most the rows a block takes at once)
+_WAVE = 3  # blocks an SM at most in the one wave a launch aims for
+_LONG_RUN = 64  # (band, sample) pairs a block beyond which a lone small block takes two waves
+
+
+@dataclasses.dataclass(frozen=True)
+class StencilPlan:
+    """The kernel's tiling for one (B, NY, NX2): bands of ``rows`` grid rows
+    (the last band the rest), ``rows_at_once`` of them computed at a time
+    (sub-bands when fewer than ``rows``), each block a run of ``run``
+    consecutive (band, sample) pairs, band-major, each thread one node of
+    one row; ``threads`` a block, ``blocks`` a launch, ``smem_bytes`` of
+    shared memory a block."""
+
+    rows: int
+    rows_at_once: int
+    run: int
+    threads: int
+    blocks: int
+    smem_bytes: int
+
+
+def plan_tiling(B: int, NY: int, NX2: int, fit, sms: int, rows_per_block=None) -> StencilPlan:
+    """The tiling of a matvec at (B, NY, NX2) on a card of ``sms`` SMs.
+
+    ``fit(rt)`` is what the built kernel takes to compute ``rt`` rows at
+    once: (threads a block, shared-memory bytes a block, blocks an SM holds
+    at once), or None where it cannot (:func:`launch_plan` asks the
+    library). R = ``rows_per_block`` if given, else ``_ROWS`` as far as a
+    block takes them at once, and at most the grid; a block computes as many
+    of its rows at once as it takes. The (band, sample) pairs are split into
+    equal runs for one wave of at most ``_WAVE`` blocks an SM, as many as an
+    SM holds; where a block is alone on its SM with fewer than 8 warps and
+    the runs would pass ``_LONG_RUN`` pairs, into two waves.
+    tools/stencil_tiles.py times every candidate on the card (PERF.md): at
+    160x80 one block an SM (float32, 3 rows a band, 16 warps) is the
+    fastest, a second wave costs each block a second pipeline start; in
+    float64 (one row, 6 warps a block) two waves beat one at B = 256 (runs
+    of 158 pairs) and lose at B = 8 and 16 (runs of 5 and 10). Raises
+    ``ValueError`` for a grid row too long for one block."""
+    if B <= 0 or NY <= 0 or NX2 <= 0 or NX2 % 2:
+        raise ValueError(f"launch_plan: B={B}, NY={NY}, NX2={NX2}")
+    if fit(1) is None:
+        raise ValueError(f"a grid row of {NX2} lanes is too long for the stencil kernel")
+
+    def most_rows(limit):
+        rt = limit
+        while rt > 1 and fit(rt) is None:
+            rt -= 1
+        return rt
+
+    rows = min(_ROWS if rows_per_block is None else rows_per_block, NY)
+    if rows_per_block is None:
+        rows = most_rows(rows)
+    rows_at_once = most_rows(rows)
+    threads, smem, per_sm = fit(rows_at_once)
+    pairs = -(-NY // rows) * B
+    blocks = sms * min(_WAVE, max(1, per_sm))
+    if per_sm <= 1 and threads < 256 and pairs > _LONG_RUN * blocks:
+        blocks *= 2
+    run = -(-pairs // blocks)
+    return StencilPlan(rows, rows_at_once, run, threads, -(-pairs // run), smem)
+
+
+_PLANS = {}
+
+
+def launch_plan(B: int, NY: int, NX2: int, dtype, device, rows_per_block=None) -> StencilPlan:
+    """:func:`plan_tiling` with the built kernel's answers on the CUDA
+    ``device`` for ``dtype`` (float32 or float64), kept for later calls."""
+    key = (B, NY, NX2, dtype, device, rows_per_block)
+    plan = _PLANS.get(key)
+    if plan is None:
+        lib, _, _ = _build.load_library()
+        fn = (lib.vbicm_stencil_affine_fit_f32 if dtype == torch.float32
+              else lib.vbicm_stencil_affine_fit_f64)
+        with torch.cuda.device(device):
+            plan = plan_tiling(B, NY, NX2, lambda rt: _build.kernel_fit(fn, 3, NX2, rt),
+                               torch.cuda.get_device_properties(device).multi_processor_count,
+                               rows_per_block)
+        _PLANS[key] = plan
+    return plan
 
 
 def pack_w_interleaved(W) -> np.ndarray:
@@ -74,33 +156,24 @@ def stencil_affine_reference(W, coeffs, u):
     return q
 
 
-def sample_tile(nx2: int, B: int, itemsize: int, rows_per_block: int = 1) -> int:
-    """Samples per block: up to 8, fewer when B is smaller or the staged
-    rows (rows_per_block + 2 of them a sample) would not fit in a block's
-    shared memory."""
-    row = (rows_per_block + 2) * (nx2 + 6) + 2
-    tile = min(_SAMPLE_TILE, B, _SMEM_BYTES // (row * itemsize))
-    if tile < 1:
-        raise ValueError(f"{rows_per_block} grid row(s) of {nx2} lanes do not fit the stencil "
-                         f"kernel's shared memory ({_SMEM_BYTES} bytes)")
-    return tile
-
-
-def stencil_affine_matvec(W, w_planes, coeffs, u, rows_per_block: int = 1):
+def stencil_affine_matvec(W, w_planes, coeffs, u, rows_per_block=None):
     """Batched ``q = (c0 K_lam + c1 K_mu) u`` through the CUDA kernel.
 
     W: (2, NY, NX, 3, 3, 2, 2) block tables (the plain version's operand);
     w_planes: (NY, 42, 2NX) packed planes (the kernel's); coeffs (B, 2);
     u (B, 2*NY*NX). CPU tensors run :func:`stencil_affine_reference` on W;
-    CUDA tensors, all float32 or all float64, run the kernel on w_planes:
-    one grid row a block, or ``rows_per_block`` rows a block (the last block
-    takes the rest), bitwise equal. Returns q (B, 2*NY*NX) in u's dtype.
+    CUDA tensors, all float32 or all float64, each aligned to two of its
+    values, run the kernel on w_planes with :func:`launch_plan`'s tiling,
+    ``rows_per_block`` grid rows a block if given (None: the plan's), all
+    bitwise equal. Returns q (B, 2*NY*NX) in u's dtype.
 
-    ``stencil_affine_matvec.launches`` counts the one-row kernel's launches,
-    ``stencil_affine_matvec.rows_launches`` the rows-per-block option's.
+    ``stencil_affine_matvec.launches`` counts the launches with the plan's
+    rows or one row, ``stencil_affine_matvec.rows_launches`` those with a
+    forced ``rows_per_block`` > 1.
     """
-    if not (isinstance(rows_per_block, int) and rows_per_block >= 1):
-        raise ValueError(f"rows_per_block must be a positive int, got {rows_per_block!r}")
+    if rows_per_block is not None and not (isinstance(rows_per_block, int)
+                                           and rows_per_block >= 1):
+        raise ValueError(f"rows_per_block must be None or a positive int, got {rows_per_block!r}")
     if u.device.type == "cpu":
         return stencil_affine_reference(W, coeffs, u)
     tensors = (w_planes, coeffs, u)
@@ -114,33 +187,29 @@ def stencil_affine_matvec(W, w_planes, coeffs, u, rows_per_block: int = 1):
                         "all must be float32 or all float64")
     NY, planes, NX2 = w_planes.shape
     B = u.shape[0]
-    if planes != 42 or coeffs.shape != (B, 2) or u.shape != (B, NY * NX2):
+    if planes != 42 or NX2 % 2 or coeffs.shape != (B, 2) or u.shape != (B, NY * NX2):
         raise ValueError(f"stencil_affine_matvec: shapes w_planes {tuple(w_planes.shape)}, "
                          f"coeffs {tuple(coeffs.shape)}, u {tuple(u.shape)}")
     for name, t in (("w_planes", w_planes), ("coeffs", coeffs), ("u", u)):
         if not t.is_contiguous():
             raise ValueError(f"stencil_affine_matvec: {name} must be contiguous")
+        if t.data_ptr() % (2 * t.element_size()):
+            raise ValueError(f"stencil_affine_matvec: {name} must be aligned to two values")
 
     q = torch.empty_like(u)
     if B > 0:
+        plan = launch_plan(B, NY, NX2, dtype, device, rows_per_block)
         lib, _, _ = _build.load_library()
-        f32 = dtype == torch.float32
-        tile = sample_tile(NX2, B, u.element_size(), rows_per_block)
-        threads = min(_MAX_THREADS, -(-NX2 // 32) * 32)
-        ptrs = (w_planes.data_ptr(), coeffs.data_ptr(), u.data_ptr(), q.data_ptr())
+        fn = (lib.vbicm_stencil_affine_f32 if dtype == torch.float32
+              else lib.vbicm_stencil_affine_f64)
         with torch.cuda.device(device):
-            stream = torch.cuda.current_stream(device).cuda_stream
-            if rows_per_block == 1:
-                fn = lib.vbicm_stencil_affine_f32 if f32 else lib.vbicm_stencil_affine_f64
-                err = fn(*ptrs, B, NY, NX2, tile, threads, stream)
-            else:
-                fn = lib.vbicm_stencil_affine_rows_f32 if f32 else lib.vbicm_stencil_affine_rows_f64
-                err = fn(*ptrs, B, NY, NX2, tile, rows_per_block, threads, stream)
+            err = fn(w_planes.data_ptr(), coeffs.data_ptr(), u.data_ptr(), q.data_ptr(), B, NY,
+                     NX2, plan.rows, plan.rows_at_once, plan.run,
+                     torch.cuda.current_stream(device).cuda_stream)
         if err != 0:
             raise RuntimeError(f"stencil_affine kernel launch failed with CUDA error {err} "
-                               f"(B={B}, NY={NY}, NX2={NX2}, tile={tile}, "
-                               f"rows_per_block={rows_per_block}, {dtype})")
-        if rows_per_block == 1:
+                               f"(B={B}, NY={NY}, NX2={NX2}, {plan}, {dtype})")
+        if rows_per_block is None or rows_per_block == 1:
             stencil_affine_matvec.launches += 1
         else:
             stencil_affine_matvec.rows_launches += 1
