@@ -24,7 +24,8 @@ before and read just after:
   at 32x8x8 (8,019 dofs; float32 CG + one float64 refinement, input
   standardization, per-sample pairing);
 - the element path (phases 18-23): the element kernel on quad4, randomly
-  renumbered quad4 and hex8 meshes, Jacobi-PCG on matrix-free models
+  renumbered quad4, quad4 with every element listed twice (more entries a
+  dof than the kernel holds in registers) and hex8 meshes, Jacobi-PCG on matrix-free models
   against the dense solve, the element-path two-level solve at 160x80
   against the JAX golden and the stencil path, its adjoint at 40x20, and
   the scaled reduced-basis trainer (examples/train_scaled_rom_torch.py:
@@ -38,10 +39,10 @@ before and read just after:
   probe against its plain version, and
   examples/stencil_kernel_study_torch.py's main at 160x80, B = 256.
 
-Phase 1 fails if a spectral or stencil kernel spills registers; phases 2,
-8, 13 and 18 hold two calls of a kernel bitwise equal; the stencil kernels
-are timed by device time (CUDA graphs) beside eager time in float32 and
-float64, each with its share of its bound.
+Phase 1 fails if a spectral, stencil or quad4 element kernel spills
+registers; phases 2, 8, 13 and 18 hold two calls of a kernel bitwise equal;
+the stencil and element kernels are timed by device time (CUDA graphs)
+beside eager time in float32 and float64, each with its share of its bound.
 
 Prints one line per phase, the card's name and power limit, a JSON line with
 the kernels' records (each with its bound: the larger of the bytes it must
@@ -86,16 +87,22 @@ BOX_GRIDS = [(4, 2, 2), (32, 8, 8), (64, 16, 16)]
 BOX_MAIN = ((32, 8, 8), 256)
 BOX_COARSE_SHAPE = (256, 1200)  # the 3-D coarse solve: 16x4x4, 1200 free dofs
 BOX_FH_BATCHES = (64, 256)  # the timed 64x16x16 solves (bench.py's B, and B = 256)
-# the element kernel's meshes: (name, mesh factory, 3-D) -- quad4 Cook's,
-# Cook's 20x10 with its nodes and elements renumbered from a seed (an
-# unstructured dof map), hex8 boxes
-ELEMENT_MESHES = [("8x4", lambda m: m.cooks_membrane_mesh(8, 4), False),
-                  ("32x16", lambda m: m.cooks_membrane_mesh(32, 16), False),
-                  ("160x80", lambda m: m.cooks_membrane_mesh(160, 80), False),
+# the element kernel's meshes: (name, mesh factory, 3-D, copies of each
+# element) -- quad4 Cook's, Cook's 20x10 with its nodes and elements
+# renumbered from a seed (an unstructured dof map), Cook's 8x4 with every
+# element listed twice (dofs with up to 8 entries, twice the quad4 kernel's
+# register entries: its entries read from memory run), hex8 boxes
+ELEMENT_MESHES = [("8x4", lambda m: m.cooks_membrane_mesh(8, 4), False, 1),
+                  ("32x16", lambda m: m.cooks_membrane_mesh(32, 16), False, 1),
+                  ("160x80", lambda m: m.cooks_membrane_mesh(160, 80), False, 1),
                   ("20x10 renumbered",
-                   lambda m: m.renumber_mesh(m.cooks_membrane_mesh(20, 10), seed=3), False),
-                  ("4x2x2", lambda m: m.beam_hex8_mesh(4, 2, 2), True),
-                  ("32x8x8", lambda m: m.beam_hex8_mesh(32, 8, 8), True)]
+                   lambda m: m.renumber_mesh(m.cooks_membrane_mesh(20, 10), seed=3), False, 1),
+                  ("8x4 doubled", lambda m: m.cooks_membrane_mesh(8, 4), False, 2),
+                  ("4x2x2", lambda m: m.beam_hex8_mesh(4, 2, 2), True, 1),
+                  ("32x8x8", lambda m: m.beam_hex8_mesh(32, 8, 8), True, 1)]
+# the element kernel's timed batches at 160x80 (the element path's own and
+# the step's), B = 256 the JSON line's case
+ELEMENT_TIMED = (8, 16, 256)
 # the study path (phases 24-27): rows_per_block values held bitwise against
 # the launch plan's rows (2 and 4 do not divide NY = 81, 8 divides none of
 # the grids' NY, and 4 and 8 take 160x80's bands in sub-bands), and the
@@ -227,6 +234,22 @@ def stencil_fields(times, tag=""):
     return out
 
 
+def element_fields(elem):
+    """The element kernel's JSON fields: the (256, 160x80) float32 record
+    under its own names, float64 with "_f64", the element path's batches
+    with "_b8" / "_b16", the launch plan's sample groups, and the
+    renumbered mesh's device time."""
+    out = {}
+    for (B, dtype), t in elem["element_ms"].items():
+        tag = ("" if dtype == torch.float32 else "_f64") + ("" if B == 256 else f"_b{B}")
+        for key in ("ms", "plain_ms", "ms_eager", "bound_ms", "bound_by", "library_ms"):
+            if key in t:
+                out[key + tag] = t[key]
+        out["groups" + tag] = t["plan"][0]
+    out["ms_renumbered"] = elem["element_ms_renumbered"]["ms"]
+    return out
+
+
 def assembled_csr(model, dtype):
     """The assembled K_lam, K_mu (all dofs, no masking) as CSR tensors on
     the model's device: the library yardstick's operands."""
@@ -341,8 +364,16 @@ def main():
     _, build_s, build_log = _build.load_library()
     import re
 
-    regs, spectral, stencils = [], [], []
+    regs, spectral, stencils, elements = [], [], [], []
     for kname, (nreg, st, ld) in ptxas_by_kernel(build_log).items():
+        ek = re.search(r"element_affine_(quad4_)?kernelI([fd])", kname)
+        if ek is not None:
+            label = (f"{'quad4' if ek.group(1) else 'hex8'} "
+                     f"{'f32' if ek.group(2) == 'f' else 'f64'}")
+            elements.append(f"{label}: {nreg} regs, {st}+{ld} B spilled")
+            if ek.group(1) and (st or ld):
+                fail(f"quad4 element kernel {kname} spills ({st} B stored, {ld} B loaded)")
+            continue
         m = re.search(r"spectral_apply_kernelI([fd])Li(\d+)ELi(\d+)ELi\d+ELi\d+ELb([01])ELb([01])E",
                       kname)
         c = re.search(r"spectral_combine_kernelI([fd])Lb([01])E", kname)
@@ -374,9 +405,14 @@ def main():
     # the 2-D and the 3-D kernel, each in f32 and f64
     if len(stencils) != 2 + 2:
         fail(f"expected 4 stencil kernels (2 2-D, 2 3-D) in the ptxas log, found {stencils}")
+    # quad4 and hex8, each in f32 and f64
+    if len(elements) != 2 + 2:
+        fail(f"expected 4 element kernels (quad4, hex8 x f32, f64) in the ptxas log, found "
+             f"{elements}")
     print(f"[1 card] {card}; torch {torch.__version__} cuda {torch.version.cuda}; "
           f"kernel build {build_s:.2f}s; ptxas spectral (dtype, tile, launch): "
-          f"{'; '.join(spectral)}; stencils: {'; '.join(stencils)}; other kernels: "
+          f"{'; '.join(spectral)}; stencils: {'; '.join(stencils)}; element: "
+          f"{'; '.join(elements)}; other kernels: "
           f"{' | '.join(regs)}", flush=True)
 
     # 2. kernel against its plain version on the card
@@ -549,16 +585,11 @@ def main():
         "route": "cuda",
         "source": "vbicm_tpu_torch/csrc/element_matvec.cu",
         "replaces": "vbicm_tpu/ops/element_matvec_pallas.py:75",
-        "launches": elem["element_launches"],
-        "launches_by_path": {"rom_160x80": elem["element_launches"]},
+        "launches": elem["element_launches"] + elem["element_fh_launches"],
+        "launches_by_path": {"rom_160x80": elem["element_launches"],
+                             "element_fh_160x80": elem["element_fh_launches"]},
         "max_abs_err": elem["element_abs_err"],
-        "ms": elem["element_ms"][torch.float32][0],
-        "plain_ms": elem["element_ms"][torch.float32][1],
-        "bound_ms": elem["element_ms"][torch.float32][3][0],
-        "bound_by": elem["element_ms"][torch.float32][3][1],
-        "library_ms": elem["element_ms"][torch.float32][2],
-        "ms_f64": elem["element_ms"][torch.float64][0],
-        "bound_ms_f64": elem["element_ms"][torch.float64][3][0],
+        **element_fields(elem),
     }]
     rows32, rows64 = study["rows_ms"][f32], study["rows_ms"][f64]
     mxu = study["mxu_ms"]
@@ -819,21 +850,27 @@ def element_path(dev, card):
     from vbicm_tpu_torch.config import ProblemConfig, SectionCard
     from vbicm_tpu_torch.model import build_fem_model
     from vbicm_tpu_torch.ops.assembly import element_affine_matvec
-    from vbicm_tpu_torch.ops.element_kernel import ElementOperator, element_affine_matvec_kernel
+    from vbicm_tpu_torch.ops.element_kernel import (
+        ElementOperator,
+        element_affine_matvec_kernel,
+        launch_plan,
+    )
     from vbicm_tpu_torch.ops.spectral_kernel import spectral_apply_batched
     from vbicm_tpu_torch.rom import build_reduced_basis, make_fh_fun_rom
     from vbicm_tpu_torch.solver import make_fh_fun, make_solver, make_two_level_solver
 
     out = {}
     f32, f64 = torch.float32, torch.float64
-    # 18. the element kernel against its plain version, ragged sample tiles,
+    # 18. the element kernel against its plain version, ragged sample runs,
     #     two launches bitwise equal
     worst = {}
     saved = element_affine_matvec_kernel.launches
-    for name, make, is3d in ELEMENT_MESHES:
+    for name, make, is3d, copies in ELEMENT_MESHES:
         m = build_fem_model(make(meshes), SectionCard(stype=4) if is3d else SectionCard(),
                             device=dev, dense=False)
-        op = ElementOperator(torch.stack([m.ke_lam, m.ke_mu]), m.lm, m.ndof)
+        lm = m.lm.repeat(copies, 1)
+        op = ElementOperator(torch.stack([m.ke_lam, m.ke_mu]).repeat(1, copies, 1, 1), lm,
+                             m.ndof)
         for B in ELEMENT_BATCHES:
             rng = np.random.default_rng(B + m.ndof)
             u64 = torch.as_tensor(rng.normal(size=(B, m.ndof)), device=dev)
@@ -841,7 +878,7 @@ def element_path(dev, card):
             for dtype in (f32, f64):
                 u, c = u64.to(dtype), c64.to(dtype)
                 q, q2 = op.affine(c, u), op.affine(c, u)
-                qr = element_affine_matvec(op.ke[dtype], m.lm, c, u, m.ndof)
+                qr = element_affine_matvec(op.ke[dtype], lm, c, u, m.ndof)
                 torch.cuda.synchronize()
                 err = rel_err(q, qr)
                 if not err <= REL_TOL[dtype]:
@@ -851,34 +888,67 @@ def element_path(dev, card):
                 worst[dtype] = max(worst.get(dtype, 0.0), err)
                 if (name, B, dtype) == ("160x80", 256, f32):
                     out["element_abs_err"] = float((q - qr).abs().max())
-            if (name, B) == ("160x80", 256):
-                timed = (m, op, c64, u64)
+        if name == "160x80":
+            timed = (m, op)
+        if name == "8x4 doubled":
+            most = int(torch.diff(op.row_ptr).max())
     print(f"[18 element] ok: max rel err vs plain (of max|q|) f32 {worst[f32]:.3e} (tol 2e-5), "
           f"f64 {worst[f64]:.3e} (tol 1e-12), two launches bitwise equal, over "
-          f"{[n for n, _, _ in ELEMENT_MESHES]} x B in {ELEMENT_BATCHES}", flush=True)
-    m, op, c64, u64 = timed
-    out["element_ms"] = {}
-    for dtype in (f32, f64):
-        u, c = u64.to(dtype), c64.to(dtype)
-        k_ms = time_ms(lambda: op.affine(c, u), warmup=10, reps=100)
-        p_ms = time_ms(lambda: element_affine_matvec(op.ke[dtype], m.lm, c, u, m.ndof),
-                       warmup=3, reps=20)
-        K, uT = assembled_csr(m, dtype), u.T.contiguous()
-        lib_err = rel_err(library_affine(K, c, uT).T, op.affine(c, u))
-        if not lib_err <= REL_TOL[dtype]:
-            fail(f"cuSPARSE yardstick vs element kernel at 160x80 {dtype}: rel err {lib_err}")
-        l_ms = time_ms(lambda: library_affine(K, c, uT), warmup=3, reps=20)
+          f"{[n for n, _, _, _ in ELEMENT_MESHES]} x B in {ELEMENT_BATCHES} (8x4 doubled: up to "
+          f"{most} entries a dof)", flush=True)
+
+    def element_times(m, op, B, dtype, seed):
+        """The kernel's record at (B, mesh): device and eager time beside the
+        plain version's, its bound and its launch plan."""
+        rng = np.random.default_rng(seed)
+        u = torch.as_tensor(rng.normal(size=(B, m.ndof)), device=dev).to(dtype)
+        c = torch.as_tensor(rng.uniform(1.0, 3.0, (B, 2)), device=dev).to(dtype)
+        err = rel_err(op.affine(c, u), element_affine_matvec(op.ke[dtype], m.lm, c, u, m.ndof))
+        if not err <= REL_TOL[dtype]:
+            fail(f"element kernel vs plain at the timed {m.ndof} dofs, B={B} {dtype}: "
+                 f"rel err {err}")
         # u and q once, the blocks and the dof map once (not the kernel's own
         # incidence tables, which the function does not need); an FMA per
         # block entry per sample, and the two-part combine per dof
         nbytes = ((2 * u.numel() + op.ke[dtype].numel() + c.numel()) * u.element_size()
                   + 4 * op.lm.numel())
-        flops = 2 * op.ke[dtype].numel() * u.shape[0] + 3 * u.numel()
-        out["element_ms"][dtype] = (k_ms, p_ms, l_ms, least_time(nbytes, flops, dtype))
-        print(f"[18 times] element matvec (B=256, 160x80) {dtype}: kernel {k_ms:.4f} ms, plain "
-              f"{p_ms:.4f} ms, cuSPARSE yardstick {l_ms:.4f} ms (rel err {lib_err:.1e}); bound "
-              f"{out['element_ms'][dtype][3][0]:.4f} ms ({out['element_ms'][dtype][3][1]}), on "
-              f"{card}", flush=True)
+        flops = 2 * op.ke[dtype].numel() * B + 3 * u.numel()
+        t = stencil_times(lambda: op.affine(c, u),
+                          lambda: element_affine_matvec(op.ke[dtype], m.lm, c, u, m.ndof),
+                          least_time(nbytes, flops, dtype), plain_reps=2 if B > 16 else 5)
+        t["plan"] = launch_plan(B, m.ndof, op.lm.shape[1], dtype)
+        return t, c, u
+
+    m, op = timed
+    out["element_ms"] = {}
+    for B in ELEMENT_TIMED:
+        for dtype in (f32, f64):
+            t, c, u = element_times(m, op, B, dtype, seed=B + m.ndof)
+            if B == 256:
+                K, uT = assembled_csr(m, dtype), u.T.contiguous()
+                lib_err = rel_err(library_affine(K, c, uT).T, op.affine(c, u))
+                if not lib_err <= REL_TOL[dtype]:
+                    fail(f"cuSPARSE yardstick vs element kernel at 160x80 {dtype}: rel err "
+                         f"{lib_err}")
+                t["library_ms"] = time_ms(lambda: library_affine(K, c, uT), warmup=3, reps=20)
+            out["element_ms"][B, dtype] = t
+            lib = (f", cuSPARSE yardstick (eager) {t['library_ms']:.4f} ms (rel err "
+                   f"{lib_err:.1e})" if B == 256 else "")
+            print(f"[18 times] element matvec (B={B}, 160x80) {dtype}, plan (groups, blocks an "
+                  f"SM, register entries) {t['plan']}: device kernel {t['ms']:.4f} ms, plain "
+                  f"{t['plain_ms']:.4f} ms; eager kernel {t['ms_eager']:.4f} ms{lib}; bound "
+                  f"{t['bound_ms']:.4f} ms ({t['bound_by']}), {100 * t['share_of_bound']:.1f} % "
+                  f"of it; on {card}", flush=True)
+    # what an unstructured numbering costs (a record, not a check)
+    m = build_fem_model(meshes.renumber_mesh(meshes.cooks_membrane_mesh(160, 80), seed=3),
+                        device=dev, dense=False)
+    op = ElementOperator(torch.stack([m.ke_lam, m.ke_mu]), m.lm, m.ndof, dtypes=(f32,))
+    t, _, _ = element_times(m, op, 256, f32, seed=256 + m.ndof)
+    out["element_ms_renumbered"] = t
+    print(f"[18 times] element matvec (B=256, 160x80 renumbered, seed 3) {f32}, plan "
+          f"{t['plan']}: device kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms; eager "
+          f"kernel {t['ms_eager']:.4f} ms; bound {t['bound_ms']:.4f} ms, "
+          f"{100 * t['share_of_bound']:.1f} % of it; on {card}", flush=True)
     element_affine_matvec_kernel.launches = saved
 
     # 19. Jacobi-PCG (make_solver on matrix-free models) against the dense
@@ -1028,6 +1098,16 @@ def element_path(dev, card):
     th = torch.randn((256, 2), generator=torch.Generator().manual_seed(5),
                      dtype=torch.float64).to(dev)
     saved = (element_affine_matvec_kernel.launches, spectral_apply_batched.launches)
+    # the element path's own run: one batch, counts zeroed just before
+    element_affine_matvec_kernel.launches = 0
+    with torch.no_grad():
+        paths[False]["fh"](th)
+    torch.cuda.synchronize()
+    out["element_fh_launches"] = element_affine_matvec_kernel.launches
+    if out["element_fh_launches"] <= 0:
+        fail("the element-path fh batch never launched the element kernel")
+    print(f"[23 launches] element-path two-level fh (160x80, B=256), one batch: element kernel "
+          f"{out['element_fh_launches']}", flush=True)
     for use_stencil in (False, True):
         fh, solve = paths[use_stencil]["fh"], paths[use_stencil]["solve"]
         dt = wall_s(lambda: fh(th), 3)

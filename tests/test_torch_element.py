@@ -27,7 +27,11 @@ from vbicm_tpu_torch.ops.assembly import (
     jacobi_diagonal,
     make_sorted_scatter,
 )
-from vbicm_tpu_torch.ops.element_kernel import ElementOperator, element_affine_matvec_kernel
+from vbicm_tpu_torch.ops.element_kernel import (
+    MAXE,
+    ElementOperator,
+    element_affine_matvec_kernel,
+)
 
 # (name, port mesh factory, section): quad4 Cook's, the same mesh with its
 # nodes and elements randomly renumbered, and a hex8 box
@@ -112,6 +116,93 @@ def test_kernel_pull_form_on_the_tables_matches_plain(models):
     assert np.abs(q - want).max() <= 1e-12 * np.abs(want).max()
 
 
+def _emulate_quad4_kernel(ke, lm, row_ptr, ent, coeffs, u, groups):
+    """The quad4 kernel's arithmetic in NumPy, all dofs at once: the samples
+    cut into ``groups`` balanced runs; in each run the rows of a dof's first
+    MAXE entries are gathered once ("registers"), the samples walked two at
+    a time, each sample's two sums taken over the register entries and then
+    over the further entries, whose rows are gathered inside the sample loop
+    -- in both, entry by entry and column by column, the kernel's order."""
+    B, ndof = u.shape
+    edof = lm.shape[1]
+    n = np.diff(row_ptr)
+    e, i = np.divmod(ent, edof)
+
+    def entry(k):  # the dofs with a k-th entry, that entry's rows and columns
+        has = np.nonzero(n > k)[0]
+        idx = row_ptr[has] + k
+        return has, ke[:, e[idx], i[idx], :], lm[e[idx]]
+
+    def pull(a, ss, has, rows, cols):
+        for j in range(edof):
+            x = u[ss][:, cols[:, j]]  # (samples, dofs)
+            a[:, :, has] += rows[:, None, :, j] * x[None]
+
+    q = np.full_like(u, np.nan)
+    for g in range(groups):
+        s_begin, s_end = g * B // groups, (g + 1) * B // groups
+        registers = [entry(k) for k in range(MAXE)]
+        for s in range(s_begin, s_end, 2):
+            ss = np.arange(s, min(s + 2, s_end))
+            a = np.zeros((2, len(ss), ndof))
+            for has, rows, cols in registers:
+                pull(a, ss, has, rows, cols)
+            for k in range(MAXE, n.max(initial=0)):
+                pull(a, ss, *entry(k))
+            q[ss] = coeffs[ss, :1] * a[0] + coeffs[ss, 1:] * a[1]
+    return q
+
+
+@pytest.mark.parametrize("name", ["quad4_8x4", "quad4_20x10_renumbered"])
+@pytest.mark.parametrize("groups", [1, 3])
+def test_register_then_overflow_pull_on_doubled_elements_f64(name, groups):
+    """Every element listed twice (dofs with up to 2 MAXE entries, so the
+    entries beyond the registers run): the kernel's pull order against the
+    plain version on the doubled tables and against twice the JAX package's
+    element matvec, float64, 1e-12 of max |q| (sums in other orders)."""
+    make, sec = MESHES[name]
+    mesh = make()
+    model = build_fem_model(mesh, sec, device="cpu", dense=False)
+    jmodel = jax_build_fem_model(JaxMeshData(**dataclasses.asdict(mesh)), dense=False)
+    ke2 = torch.stack([model.ke_lam, model.ke_mu]).repeat(1, 2, 1, 1)
+    lm2 = model.lm.repeat(2, 1)
+    row_ptr, ent = dof_incidence(lm2, model.ndof)
+    assert np.diff(row_ptr).max() == 2 * MAXE
+    coeffs, u = _inputs(7, model.ndof, seed=11)
+    q = _emulate_quad4_kernel(ke2.numpy(), lm2.numpy(), row_ptr, ent, coeffs, u, groups)
+    plain = element_affine_matvec(ke2, lm2, torch.as_tensor(coeffs), torch.as_tensor(u),
+                                  model.ndof).numpy()
+    assert np.abs(q - plain).max() <= 1e-12 * np.abs(plain).max()
+    for b in range(u.shape[0]):
+        ke = coeffs[b, 0] * jmodel.ke_lam + coeffs[b, 1] * jmodel.ke_mu
+        want = 2 * np.asarray(jax_element_matvec(ke, jmodel.lm, jnp.asarray(u[b]), jmodel.ndof))
+        assert np.abs(q[b] - want).max() <= 1e-12 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("make,most", [
+    (lambda: cooks_membrane_mesh(8, 4), MAXE),
+    (lambda: cooks_membrane_mesh(32, 16), MAXE),
+    (lambda: cooks_membrane_mesh(160, 80), MAXE),
+    (lambda: renumber_mesh(cooks_membrane_mesh(20, 10), seed=3), MAXE),
+    (lambda: renumber_mesh(cooks_membrane_mesh(160, 80), seed=3), MAXE),
+    (lambda: beam_hex8_mesh(4, 2, 2), 8),
+    (lambda: beam_hex8_mesh(32, 8, 8), 8),
+], ids=["8x4", "32x16", "160x80", "20x10_renumbered", "160x80_renumbered", "hex8_4x2x2",
+        "hex8_32x8x8"])
+def test_incidence_entries_a_dof(make, most):
+    """The quad4 meshes the kernel is timed and checked on have at most MAXE
+    incidence entries a dof, so their rows all sit in registers (a node in
+    at most 4 elements: 1, 2 or 4 entries); hex8 has up to 8."""
+    mesh = make()
+    model = build_fem_model(mesh, SectionCard(stype=4) if mesh.conn.shape[1] == 8
+                            else SectionCard(), device="cpu", dense=False)
+    row_ptr, _ = dof_incidence(model.lm, model.ndof)
+    n = np.diff(row_ptr)
+    assert n.max() == most and n.min() >= 1
+    if most == MAXE:
+        assert set(np.unique(n)) <= {1, 2, 4}
+
+
 def test_jacobi_diagonal_is_the_pull_of_the_jax_scatter(models):
     """The Jacobi diagonal, summed on the host in the incidence order,
     against JAX's sorted segment-sum of the block diagonals and the port's
@@ -169,6 +260,21 @@ def test_wrapper_on_cpu_runs_plain_and_counts_no_launch():
     assert element_affine_matvec_kernel.launches == before == 0
 
 
+def test_wrapper_on_cpu_runs_plain_on_doubled_elements_and_counts_no_launch():
+    """Dofs with more entries than the kernel holds in registers: on the CPU
+    the wrapper still runs the plain version and counts no launch."""
+    model = build_fem_model(renumber_mesh(cooks_membrane_mesh(20, 10), seed=3), device="cpu",
+                            dense=False)
+    ke2 = torch.stack([model.ke_lam, model.ke_mu]).repeat(1, 2, 1, 1)
+    lm2 = model.lm.repeat(2, 1).int()
+    row_ptr, ent = (torch.as_tensor(t) for t in dof_incidence(lm2, model.ndof))
+    coeffs, u = (torch.as_tensor(a) for a in _inputs(5, model.ndof, seed=12))
+    q = element_affine_matvec_kernel(ke2, lm2, row_ptr, ent, coeffs, u)
+    once = element_affine_matvec(ke2[:, :model.nele], model.lm, coeffs, u, model.ndof)
+    assert float((q - 2 * once).abs().max()) <= 1e-12 * float(once.abs().max())
+    assert element_affine_matvec_kernel.launches == 0
+
+
 def _meta_args(nele=6, edof=8, ndof=20, B=3, dtype=torch.float32):
     """Well-formed arguments on the meta device (no data, no CPU)."""
     def m(shape, dt):
@@ -178,20 +284,24 @@ def _meta_args(nele=6, edof=8, ndof=20, B=3, dtype=torch.float32):
                 coeffs=m((B, 2), dtype), u=m((B, ndof), dtype))
 
 
-@pytest.mark.parametrize("change,error", [
-    ({}, ValueError),  # not on a CUDA device
-    ({"u": torch.empty((3, 20), dtype=torch.float16, device="meta")}, TypeError),
-    ({"coeffs": torch.empty((3, 2), dtype=torch.float64, device="meta")}, TypeError),
-    ({"lm": torch.empty((6, 8), dtype=torch.int64, device="meta")}, TypeError),
-    ({"row_ptr": torch.empty((20,), dtype=torch.int32, device="meta")}, ValueError),
-    ({"ent": torch.empty((47,), dtype=torch.int32, device="meta")}, ValueError),
-    ({"ke_parts": torch.empty((3, 6, 8, 8), device="meta")}, ValueError),
-    ({"coeffs": torch.empty((3, 2), device="meta").T.contiguous().T}, ValueError),
-    ("edof 4", ValueError),
+@pytest.mark.parametrize("change,error,match", [
+    ({}, ValueError, "CUDA device"),  # not on a CUDA device
+    ({"u": torch.empty((3, 20), dtype=torch.float16, device="meta")}, TypeError, None),
+    ({"coeffs": torch.empty((3, 2), dtype=torch.float64, device="meta")}, TypeError, None),
+    ({"lm": torch.empty((6, 8), dtype=torch.int64, device="meta")}, TypeError, None),
+    ({"row_ptr": torch.empty((20,), dtype=torch.int32, device="meta")}, ValueError, None),
+    ({"ent": torch.empty((47,), dtype=torch.int32, device="meta")}, ValueError, None),
+    ({"ke_parts": torch.empty((3, 6, 8, 8), device="meta")}, ValueError, None),
+    ({"coeffs": torch.empty((3, 2), device="meta").T.contiguous().T}, ValueError, None),
+    ("edof 4", ValueError, None),
+    # quad4 rows are read as 16-byte vectors: a block array that starts 4
+    # bytes in
+    ({"ke_parts": torch.empty(2 * 6 * 64 + 1, device="meta")[1:].view(2, 6, 8, 8)},
+     ValueError, "16-byte"),
 ], ids=["device", "u-dtype", "coeffs-dtype", "lm-dtype", "row_ptr-shape", "ent-shape",
-        "three-parts", "noncontiguous", "edof"])
-def test_wrapper_refuses_what_the_kernel_does_not_take(change, error):
+        "three-parts", "noncontiguous", "edof", "misaligned"])
+def test_wrapper_refuses_what_the_kernel_does_not_take(change, error, match):
     args = _meta_args(edof=4) if change == "edof 4" else {**_meta_args(), **change}
-    with pytest.raises(error):
+    with pytest.raises(error, match=match):
         element_affine_matvec_kernel(**args)
     assert element_affine_matvec_kernel.launches == 0

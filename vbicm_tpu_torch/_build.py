@@ -58,6 +58,9 @@ _SIGNATURES = {
     # (ke, lm, row_ptr, ent, coeffs, u, q, B, ndof, nele, edof, stream) -> cudaError_t
     "vbicm_element_affine_f32": [_PTR] * 7 + [_INT] * 4 + [_PTR],
     "vbicm_element_affine_f64": [_PTR] * 7 + [_INT] * 4 + [_PTR],
+    # (B, ndof, edof, out[3]) -> cudaError_t
+    "vbicm_element_affine_plan_f32": [_INT, _INT, _INT, _INTS],
+    "vbicm_element_affine_plan_f64": [_INT, _INT, _INT, _INTS],
 }
 
 

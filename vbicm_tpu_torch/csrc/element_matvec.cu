@@ -28,30 +28,178 @@
 // What bounds it on an H100: at (B = 256, Cook's 160x80, 26,082 dofs) in
 // float32 the function moves u (26.7 MB) and q (26.7 MB) once and the
 // element blocks (6.6 MB) once, ~60 MB, 18 us at 3.35 TB/s; it does 0.84
-// GFLOP, 13 us at 67 TFLOP/s. So HBM bounds it (float64: ~36 us).
+// GFLOP, 13 us at 67 TFLOP/s. So HBM bounds the function (float64: ~36 us).
+// What bounds a pull kernel is the L1's wavefronts (one 128-byte line a
+// clock per SM): a warp's 32 dofs read scattered element rows (~16 lines a
+// request on Cook's numbering) but u values of neighbouring nodes (~1.65
+// lines a request). Reading the rows again for every 8 samples, as the
+// first form of this kernel did (the hex8 body below), spends ~70 % of the
+// wavefronts on rows: 41 M at the size above, 0.177 ms at 1.755 GHz.
 //
-// Design: one block per (tile of kThreads dofs, tile of kTile samples), the
-// dof tile the fastest block index.
-//   1. each thread owns one dof d and walks its incidence list; for each
-//      entry it reads the two element-block rows ke0[e, i, :] and
-//      ke1[e, i, :] once (2 EDOF values) and the element's EDOF dof ids, and
-//      applies them to the tile's samples, whose 2 kTile sums stay in
-//      registers;
-//   2. u is gathered through L1/L2 (26.7 MB at the size above fits the 50 MB
-//      L2); neighbouring dofs share elements, so a warp's gathers touch few
-//      cache lines;
-//   3. c0, c1 are applied in registers at the store, which coalesces along d.
-// Not yet done (later work): staging a dof tile's elements and u values in
-// shared memory, element colouring, a sample-major u layout.
+// Design of the quad4 body (EDOF 8), float32 and float64: one block per
+// (tile of kThreads dofs, run of samples), the dof tile the fastest block
+// index, so a warp's u requests stay on 1-2 lines on a structured numbering.
+//   1. Every dof of a quad4 mesh whose nodes are in at most 4 elements has
+//      at most kMaxE = 4 incidence entries (Cook's meshes, structured or
+//      renumbered). At entry a thread loads the rows of its first
+//      min(n_d, kMaxE) entries into registers: ke0[e, i, :], ke1[e, i, :]
+//      and lm[e, :], each row as 16-byte loads (so ke and lm must be
+//      16-byte aligned), 96 values a thread. It keeps them for the block's
+//      whole run of samples, so the rows are read once per run, not once
+//      per 8 samples; the L1 then serves only u.
+//   2. The samples of the run are walked two at a time, each with its own
+//      pair of sums (part 0 and part 1), so two streams of u requests are
+//      in flight; each sum is one chain of FMAs over the entries and then
+//      the columns, in the order of the hex8 body below, and
+//      c0 a0 + c1 a1 is written as that body writes it: the bits are that
+//      body's, whatever the run.
+//   3. A dof with more than kMaxE entries (a node in 5 or more elements of
+//      an unstructured mesh) takes its entries kMaxE.. inside the sample
+//      loop, after its register entries and in the same order, reading
+//      their rows from global memory: one kernel and one order, exact on
+//      every mesh.
+//   4. The launcher picks the number of runs G on the card: the largest G
+//      whose tiles x G blocks fit in one wave (blocks an SM holds, from the
+//      occupancy of the built kernel, times the SMs), at least 1, at most
+//      B; cached per device. The runs are balanced (their lengths differ by
+//      at most one).
+// hex8 (EDOF 24) keeps the first form: one block per (dof tile, tile of
+// kTile samples), the rows read per tile. Its rows (up to 8 entries x 48
+// coefficients a dof) do not fit in registers, and no timed path runs it:
+// the 3-D paths run the stencil kernel.
+//
+// Not yet done (later work): one thread a node (both dofs of a node share
+// each u request), a sample-major u layout.
 
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <cstddef>
 
 namespace {
 
 constexpr int kThreads = 128;  // dofs a block
-constexpr int kTile = 8;       // samples a block
+constexpr int kTile = 8;       // samples a block of the hex8 body
+constexpr int kQuad = 8;       // EDOF of quad4
+constexpr int kMaxE = 4;       // incidence entries a quad4 thread holds in registers
+constexpr int kMaxDevices = 64;
+
+// Blocks of the quad4 body an SM must hold: bounds its registers (f32 128,
+// f64 255), so that enough warps hide the u gathers' latency.
+template <typename T>
+struct Quad4Blocks;
+template <>
+struct Quad4Blocks<float> {
+  static constexpr int value = 4;
+};
+template <>
+struct Quad4Blocks<double> {
+  static constexpr int value = 2;
+};
+
+// the 8 values of a 32-byte (int, float) or 64-byte (double) row as 16-byte loads
+__device__ __forceinline__ void load_row(const float* p, float (&r)[kQuad]) {
+  const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+  const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
+  r[0] = a.x, r[1] = a.y, r[2] = a.z, r[3] = a.w;
+  r[4] = b.x, r[5] = b.y, r[6] = b.z, r[7] = b.w;
+}
+
+__device__ __forceinline__ void load_row(const int* p, int (&r)[kQuad]) {
+  const int4 a = __ldg(reinterpret_cast<const int4*>(p));
+  const int4 b = __ldg(reinterpret_cast<const int4*>(p) + 1);
+  r[0] = a.x, r[1] = a.y, r[2] = a.z, r[3] = a.w;
+  r[4] = b.x, r[5] = b.y, r[6] = b.z, r[7] = b.w;
+}
+
+__device__ __forceinline__ void load_row(const double* p, double (&r)[kQuad]) {
+#pragma unroll
+  for (int h = 0; h < kQuad / 2; ++h) {
+    const double2 a = __ldg(reinterpret_cast<const double2*>(p) + h);
+    r[2 * h] = a.x, r[2 * h + 1] = a.y;
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, Quad4Blocks<T>::value)
+    element_affine_quad4_kernel(const T* __restrict__ ke, const int* __restrict__ lm,
+                                const int* __restrict__ row_ptr, const int* __restrict__ ent,
+                                const T* __restrict__ coeffs, const T* __restrict__ u,
+                                T* __restrict__ q, int B, int ndof, int nele) {
+  const int d = blockIdx.x * kThreads + threadIdx.x;
+  if (d >= ndof) return;
+  const int G = gridDim.y;
+  const int s_begin = static_cast<int>(static_cast<long long>(blockIdx.y) * B / G);
+  const int s_end = static_cast<int>(static_cast<long long>(blockIdx.y + 1) * B / G);
+  const size_t part = static_cast<size_t>(nele) * kQuad * kQuad;
+  const int k_begin = __ldg(row_ptr + d);
+  const int k_end = __ldg(row_ptr + d + 1);
+  const int n_reg = min(k_end - k_begin, kMaxE);
+
+  // 1. the register entries' rows, once for the run
+  T w0[kMaxE][kQuad], w1[kMaxE][kQuad];
+  int col[kMaxE][kQuad];
+#pragma unroll
+  for (int k = 0; k < kMaxE; ++k) {
+    if (k < n_reg) {
+      const int ei = __ldg(ent + k_begin + k);  // e * 8 + i
+      load_row(ke + static_cast<size_t>(ei) * kQuad, w0[k]);
+      load_row(ke + part + static_cast<size_t>(ei) * kQuad, w1[k]);
+      load_row(lm + static_cast<size_t>(ei / kQuad) * kQuad, col[k]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < kQuad; ++j) {
+        w0[k][j] = w1[k][j] = T(0);
+        col[k][j] = 0;
+      }
+    }
+  }
+
+  // 2. the run's samples, two at a time (the second repeats the first at an
+  //    odd run's end and is not stored)
+  for (int s = s_begin; s < s_end; s += 2) {
+    const bool pair = s + 1 < s_end;
+    const T* u0 = u + static_cast<size_t>(s) * ndof;
+    const T* u1 = pair ? u0 + ndof : u0;
+    T a00 = T(0), a10 = T(0), a01 = T(0), a11 = T(0);  // a<part><sample>
+#pragma unroll
+    for (int k = 0; k < kMaxE; ++k) {
+      if (k < n_reg) {
+#pragma unroll
+        for (int j = 0; j < kQuad; ++j) {
+          const T x0 = __ldg(u0 + col[k][j]);
+          const T x1 = __ldg(u1 + col[k][j]);
+          a00 = fma(w0[k][j], x0, a00);
+          a10 = fma(w1[k][j], x0, a10);
+          a01 = fma(w0[k][j], x1, a01);
+          a11 = fma(w1[k][j], x1, a11);
+        }
+      }
+    }
+    // 3. entries beyond the registers, rows from global memory
+    for (int k = k_begin + kMaxE; k < k_end; ++k) {
+      const int ei = __ldg(ent + k);
+      const T* k0 = ke + static_cast<size_t>(ei) * kQuad;
+      const T* k1 = k0 + part;
+      const int* lme = lm + static_cast<size_t>(ei / kQuad) * kQuad;
+#pragma unroll
+      for (int j = 0; j < kQuad; ++j) {
+        const int c = __ldg(lme + j);
+        const T v0 = __ldg(k0 + j);
+        const T v1 = __ldg(k1 + j);
+        const T x0 = __ldg(u0 + c);
+        const T x1 = __ldg(u1 + c);
+        a00 = fma(v0, x0, a00);
+        a10 = fma(v1, x0, a10);
+        a01 = fma(v0, x1, a01);
+        a11 = fma(v1, x1, a11);
+      }
+    }
+    const T* c = coeffs + 2 * static_cast<size_t>(s);
+    q[static_cast<size_t>(s) * ndof + d] = __ldg(c) * a00 + __ldg(c + 1) * a10;
+    if (pair) q[static_cast<size_t>(s + 1) * ndof + d] = __ldg(c + 2) * a01 + __ldg(c + 3) * a11;
+  }
+}
 
 template <typename T, int EDOF>
 __global__ void __launch_bounds__(kThreads)
@@ -102,32 +250,88 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, int EDOF>
-int launch_edof(const void* ke, const void* lm, const void* row_ptr, const void* ent,
-                const void* coeffs, const void* u, void* q, int B, int ndof, int nele,
-                void* stream) {
-  const dim3 grid((ndof + kThreads - 1) / kThreads, (B + kTile - 1) / kTile);
-  element_affine_kernel<T, EDOF><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(ke), static_cast<const int*>(lm), static_cast<const int*>(row_ptr),
-      static_cast<const int*>(ent), static_cast<const T*>(coeffs), static_cast<const T*>(u),
-      static_cast<T*>(q), B, ndof, nele);
-  return static_cast<int>(cudaGetLastError());
+// Blocks of the quad4 body an SM of the current device holds, and the
+// device's SMs; cached per device (a race only writes the same values twice).
+template <typename T>
+cudaError_t quad4_slots(int* blocks_per_sm, int* sms) {
+  static std::atomic<int> cache[kMaxDevices][2];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kMaxDevices && cache[dev][0].load() > 0) {
+    *blocks_per_sm = cache[dev][0].load();
+    *sms = cache[dev][1].load();
+    return cudaSuccess;
+  }
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, element_affine_quad4_kernel<T>,
+                                                      kThreads, 0);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kMaxDevices) {
+    cache[dev][1].store(*sms);
+    cache[dev][0].store(*blocks_per_sm);
+  }
+  return cudaSuccess;
+}
+
+// out[3] = (sample groups G, blocks an SM holds, register entries a thread)
+// of a launch at (B, ndof, edof) on the current device: for quad4 the runs
+// of the design above, for hex8 the tiles of kTile samples (no register
+// entries).
+template <typename T>
+int plan(int B, int ndof, int edof, int* out) {
+  if (B <= 0 || ndof <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (edof == kQuad) {
+    int per_sm = 0, sms = 0;
+    const cudaError_t err = quad4_slots<T>(&per_sm, &sms);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const long long tiles = (ndof + kThreads - 1) / kThreads;
+    const long long groups = static_cast<long long>(per_sm) * sms / tiles;
+    out[0] = static_cast<int>(groups < 1 ? 1 : (groups > B ? B : groups));
+    out[1] = per_sm;
+    out[2] = kMaxE;
+    return 0;
+  }
+  if (edof == 24) {
+    int per_sm = 0;
+    const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, element_affine_kernel<T, 24>, kThreads, 0);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    out[0] = (B + kTile - 1) / kTile;
+    out[1] = per_sm;
+    out[2] = 0;
+    return out[0] > 65535 ? static_cast<int>(cudaErrorInvalidValue) : 0;
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <typename T>
 int launch(const void* ke, const void* lm, const void* row_ptr, const void* ent,
            const void* coeffs, const void* u, void* q, int B, int ndof, int nele, int edof,
            void* stream) {
-  if (B <= 0 || ndof <= 0 || nele <= 0 || (B + kTile - 1) / kTile > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
-  switch (edof) {
-    case 8:  // quad4, 2 dofs a node
-      return launch_edof<T, 8>(ke, lm, row_ptr, ent, coeffs, u, q, B, ndof, nele, stream);
-    case 24:  // hex8, 3 dofs a node
-      return launch_edof<T, 24>(ke, lm, row_ptr, ent, coeffs, u, q, B, ndof, nele, stream);
-    default:
+  if (nele <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  int p[3];
+  const int err = plan<T>(B, ndof, edof, p);
+  if (err != 0) return err;
+  const dim3 grid((ndof + kThreads - 1) / kThreads, p[0]);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const T* ke_ = static_cast<const T*>(ke);
+  const int* lm_ = static_cast<const int*>(lm);
+  const int* row_ptr_ = static_cast<const int*>(row_ptr);
+  const int* ent_ = static_cast<const int*>(ent);
+  const T* coeffs_ = static_cast<const T*>(coeffs);
+  const T* u_ = static_cast<const T*>(u);
+  if (edof == kQuad) {
+    // the rows are read as 16-byte vectors
+    if (reinterpret_cast<size_t>(ke) % 16 || reinterpret_cast<size_t>(lm) % 16)
       return static_cast<int>(cudaErrorInvalidValue);
+    element_affine_quad4_kernel<T><<<grid, kThreads, 0, st>>>(
+        ke_, lm_, row_ptr_, ent_, coeffs_, u_, static_cast<T*>(q), B, ndof, nele);
+  } else {  // hex8, 3 dofs a node
+    element_affine_kernel<T, 24><<<grid, kThreads, 0, st>>>(
+        ke_, lm_, row_ptr_, ent_, coeffs_, u_, static_cast<T*>(q), B, ndof, nele);
   }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -135,8 +339,8 @@ int launch(const void* ke, const void* lm, const void* row_ptr, const void* ent,
 // Plain C entry points, bound with ctypes. All arrays are dense row-major on
 // the current device: ke (2, nele, edof, edof); lm (nele, edof) int32;
 // row_ptr (ndof + 1) int32; ent (nele * edof) int32; coeffs (B, 2); u, q
-// (B, ndof). edof is 8 or 24. Returns the CUDA error code of the launch
-// (0 = success).
+// (B, ndof). edof is 8 (ke and lm 16-byte aligned) or 24. Returns the CUDA
+// error code of the launch (0 = success).
 extern "C" int vbicm_element_affine_f32(const void* ke, const void* lm, const void* row_ptr,
                                         const void* ent, const void* coeffs, const void* u,
                                         void* q, int B, int ndof, int nele, int edof,
@@ -149,4 +353,16 @@ extern "C" int vbicm_element_affine_f64(const void* ke, const void* lm, const vo
                                         void* q, int B, int ndof, int nele, int edof,
                                         void* stream) {
   return launch<double>(ke, lm, row_ptr, ent, coeffs, u, q, B, ndof, nele, edof, stream);
+}
+
+// The launch the entry points above make at (B, ndof, edof) on the current
+// device: out[3] = (sample groups, blocks an SM holds, register entries a
+// thread). Returns a CUDA error code (cudaErrorInvalidValue where the kernel
+// takes no such launch).
+extern "C" int vbicm_element_affine_plan_f32(int B, int ndof, int edof, int* out) {
+  return plan<float>(B, ndof, edof, out);
+}
+
+extern "C" int vbicm_element_affine_plan_f64(int B, int ndof, int edof, int* out) {
+  return plan<double>(B, ndof, edof, out);
 }

@@ -8,7 +8,9 @@ the two-part multiply-adds and the scatter back to the dofs: it reads the
 blocks as contiguous rows (2, nele, edof, edof) and, for each dof, pulls its
 element entries through the incidence tables of
 ``ops.assembly.dof_incidence``, so the sums run in a fixed order and
-repeat bit for bit. The plain version is ``ops.assembly.
+repeat bit for bit. For quad4 a thread holds the rows of its first
+``MAXE`` entries in registers over a run of samples and reads any further
+entries' rows from memory, in the same order. The plain version is ``ops.assembly.
 element_affine_matvec`` (gather, einsum, ``index_add_`` through ``lm``), so
 a fault in the tables cannot hide in both. On CPU tensors the wrapper runs
 the plain version; on CUDA tensors it launches the kernel or raises.
@@ -21,6 +23,7 @@ from .. import _build
 from .assembly import dof_incidence, element_affine_matvec
 
 EDOFS = (8, 24)  # the element sizes the kernel is compiled for: quad4, hex8
+MAXE = 4  # incidence entries a quad4 thread of the kernel holds in registers
 
 
 def element_affine_matvec_kernel(ke_parts, lm, row_ptr, ent, coeffs, u):
@@ -31,8 +34,9 @@ def element_affine_matvec_kernel(ke_parts, lm, row_ptr, ent, coeffs, u):
     (:func:`ops.assembly.dof_incidence`); coeffs (B, 2); u (B, ndof). CPU
     tensors run :func:`ops.assembly.element_affine_matvec` on ke_parts and
     lm. CUDA tensors run the kernel: ke_parts, coeffs and u all float32 or
-    all float64, lm, row_ptr and ent int32, all contiguous, edof 8 or 24.
-    Returns q (B, ndof) in u's dtype.
+    all float64, lm, row_ptr and ent int32, all contiguous, edof 8 or 24;
+    for edof 8 ke_parts and lm 16-byte aligned (the kernel reads their rows
+    as 16-byte vectors). Returns q (B, ndof) in u's dtype.
 
     ``element_affine_matvec_kernel.launches`` counts the kernel's launches.
     """
@@ -62,6 +66,9 @@ def element_affine_matvec_kernel(ke_parts, lm, row_ptr, ent, coeffs, u):
     for name, t in zip(("ke_parts", "lm", "row_ptr", "ent", "coeffs", "u"), tensors):
         if not t.is_contiguous():
             raise ValueError(f"element_affine_matvec_kernel: {name} must be contiguous")
+    if edof == 8 and (ke_parts.data_ptr() % 16 or lm.data_ptr() % 16):
+        raise ValueError("element_affine_matvec_kernel: ke_parts and lm must start on a "
+                         "16-byte boundary for edof 8")
     device = u.device
     if device.type != "cuda" or any(t.device != device for t in tensors):
         raise ValueError(f"element_affine_matvec_kernel: tensors on "
@@ -85,6 +92,22 @@ def element_affine_matvec_kernel(ke_parts, lm, row_ptr, ent, coeffs, u):
 
 
 element_affine_matvec_kernel.launches = 0
+
+
+def launch_plan(B: int, ndof: int, edof: int, dtype=torch.float32):
+    """The launch the kernel makes at (B, ndof, edof) on the current CUDA
+    device, as its C plan entry point reports it: (sample groups, blocks an
+    SM holds, register entries a thread) -- for quad4 the runs of samples a
+    block walks with its rows in registers, for hex8 the 8-sample tiles (no
+    register entries). Builds the kernels on first use; needs a GPU."""
+    lib, _, _ = _build.load_library()
+    fn = (lib.vbicm_element_affine_plan_f32 if dtype == torch.float32
+          else lib.vbicm_element_affine_plan_f64)
+    plan = _build.kernel_fit(fn, 3, B, ndof, edof)
+    if plan is None:
+        raise ValueError(f"element_affine kernel takes no launch at B={B}, ndof={ndof}, "
+                         f"edof={edof}")
+    return plan
 
 
 class ElementOperator:
