@@ -87,19 +87,33 @@ BOX_GRIDS = [(4, 2, 2), (32, 8, 8), (64, 16, 16)]
 BOX_MAIN = ((32, 8, 8), 256)
 BOX_COARSE_SHAPE = (256, 1200)  # the 3-D coarse solve: 16x4x4, 1200 free dofs
 BOX_FH_BATCHES = (64, 256)  # the timed 64x16x16 solves (bench.py's B, and B = 256)
-# the element kernel's meshes: (name, mesh factory, 3-D, copies of each
-# element) -- quad4 Cook's, Cook's 20x10 with its nodes and elements
-# renumbered from a seed (an unstructured dof map), Cook's 8x4 with every
-# element listed twice (dofs with up to 8 entries, twice the quad4 kernel's
-# register entries: its entries read from memory run), hex8 boxes
-ELEMENT_MESHES = [("8x4", lambda m: m.cooks_membrane_mesh(8, 4), False, 1),
-                  ("32x16", lambda m: m.cooks_membrane_mesh(32, 16), False, 1),
-                  ("160x80", lambda m: m.cooks_membrane_mesh(160, 80), False, 1),
+def doubled(ke, lm):
+    """Every element listed twice: dofs with up to 8 entries, twice the quad4
+    kernel's register entries, so its entries read from memory run."""
+    return ke.repeat(1, 2, 1, 1), lm.repeat(2, 1)
+
+
+def dofs_shuffled(ke, lm):
+    """The dof ids permuted from a seed: a node's two dofs no longer adjacent
+    in u, so the quad4 kernel reads u one value at a time."""
+    perm = torch.as_tensor(np.random.default_rng(5).permutation(int(lm.max()) + 1))
+    return ke, perm.to(lm.device)[lm]
+
+
+# the element kernel's meshes: (name, mesh factory, 3-D, tables) -- quad4
+# Cook's, Cook's 20x10 with its nodes and elements renumbered from a seed
+# (an unstructured dof map), Cook's 8x4 doubled, Cook's 20x10 with its dofs
+# shuffled, hex8 boxes; ``tables`` maps the model's (ke, lm)
+ELEMENT_MESHES = [("8x4", lambda m: m.cooks_membrane_mesh(8, 4), False, None),
+                  ("32x16", lambda m: m.cooks_membrane_mesh(32, 16), False, None),
+                  ("160x80", lambda m: m.cooks_membrane_mesh(160, 80), False, None),
                   ("20x10 renumbered",
-                   lambda m: m.renumber_mesh(m.cooks_membrane_mesh(20, 10), seed=3), False, 1),
-                  ("8x4 doubled", lambda m: m.cooks_membrane_mesh(8, 4), False, 2),
-                  ("4x2x2", lambda m: m.beam_hex8_mesh(4, 2, 2), True, 1),
-                  ("32x8x8", lambda m: m.beam_hex8_mesh(32, 8, 8), True, 1)]
+                   lambda m: m.renumber_mesh(m.cooks_membrane_mesh(20, 10), seed=3), False, None),
+                  ("8x4 doubled", lambda m: m.cooks_membrane_mesh(8, 4), False, doubled),
+                  ("20x10 dofs shuffled", lambda m: m.cooks_membrane_mesh(20, 10), False,
+                   dofs_shuffled),
+                  ("4x2x2", lambda m: m.beam_hex8_mesh(4, 2, 2), True, None),
+                  ("32x8x8", lambda m: m.beam_hex8_mesh(32, 8, 8), True, None)]
 # the element kernel's timed batches at 160x80 (the element path's own and
 # the step's), B = 256 the JSON line's case
 ELEMENT_TIMED = (8, 16, 256)
@@ -364,7 +378,7 @@ def main():
     _, build_s, build_log = _build.load_library()
     import re
 
-    regs, spectral, stencils, elements = [], [], [], []
+    regs, spectral, stencils, elements, spilled = [], [], [], [], []
     for kname, (nreg, st, ld) in ptxas_by_kernel(build_log).items():
         ek = re.search(r"element_affine_(quad4_)?kernelI([fd])", kname)
         if ek is not None:
@@ -372,7 +386,8 @@ def main():
                      f"{'f32' if ek.group(2) == 'f' else 'f64'}")
             elements.append(f"{label}: {nreg} regs, {st}+{ld} B spilled")
             if ek.group(1) and (st or ld):
-                fail(f"quad4 element kernel {kname} spills ({st} B stored, {ld} B loaded)")
+                spilled.append(f"quad4 element kernel {label} spills ({st} B stored, {ld} B "
+                               "loaded)")
             continue
         m = re.search(r"spectral_apply_kernelI([fd])Li(\d+)ELi(\d+)ELi\d+ELi\d+ELb([01])ELb([01])E",
                       kname)
@@ -414,6 +429,8 @@ def main():
           f"{'; '.join(spectral)}; stencils: {'; '.join(stencils)}; element: "
           f"{'; '.join(elements)}; other kernels: "
           f"{' | '.join(regs)}", flush=True)
+    if spilled:
+        fail("; ".join(spilled))
 
     # 2. kernel against its plain version on the card
     worst = {}
@@ -865,12 +882,11 @@ def element_path(dev, card):
     #     two launches bitwise equal
     worst = {}
     saved = element_affine_matvec_kernel.launches
-    for name, make, is3d, copies in ELEMENT_MESHES:
+    for name, make, is3d, tables in ELEMENT_MESHES:
         m = build_fem_model(make(meshes), SectionCard(stype=4) if is3d else SectionCard(),
                             device=dev, dense=False)
-        lm = m.lm.repeat(copies, 1)
-        op = ElementOperator(torch.stack([m.ke_lam, m.ke_mu]).repeat(1, copies, 1, 1), lm,
-                             m.ndof)
+        ke, lm = (tables or (lambda *a: a))(torch.stack([m.ke_lam, m.ke_mu]), m.lm)
+        op = ElementOperator(ke, lm, m.ndof)
         for B in ELEMENT_BATCHES:
             rng = np.random.default_rng(B + m.ndof)
             u64 = torch.as_tensor(rng.normal(size=(B, m.ndof)), device=dev)

@@ -116,22 +116,27 @@ def test_kernel_pull_form_on_the_tables_matches_plain(models):
     assert np.abs(q - want).max() <= 1e-12 * np.abs(want).max()
 
 
-def _emulate_quad4_kernel(ke, lm, row_ptr, ent, coeffs, u, groups):
+def _emulate_quad4_kernel(ke, lm, row_ptr, ent, coeffs, u, groups, step=4, pad=True):
     """The quad4 kernel's arithmetic in NumPy, all dofs at once: the samples
     cut into ``groups`` balanced runs; in each run the rows of a dof's first
-    MAXE entries are gathered once ("registers"), the samples walked two at
-    a time, each sample's two sums taken over the register entries and then
-    over the further entries, whose rows are gathered inside the sample loop
-    -- in both, entry by entry and column by column, the kernel's order."""
+    MAXE entries are gathered once ("registers"; with ``pad``, as the kernel
+    does, an entry the dof does not have is zero weights on columns of its
+    own node), the samples walked ``step`` at a time, each sample's two sums
+    taken over the register entries and then over the further entries, whose
+    rows are gathered inside the sample loop -- in both, entry by entry and
+    column by column, the kernel's order."""
     B, ndof = u.shape
     edof = lm.shape[1]
     n = np.diff(row_ptr)
     e, i = np.divmod(ent, edof)
+    own = (np.arange(ndof) & ~1)[:, None] + (np.arange(edof) & 1)  # a dof's node's columns
 
-    def entry(k):  # the dofs with a k-th entry, that entry's rows and columns
-        has = np.nonzero(n > k)[0]
-        idx = row_ptr[has] + k
-        return has, ke[:, e[idx], i[idx], :], lm[e[idx]]
+    def entry(k, padded):  # the dofs that take a k-th entry, its rows and columns
+        has = np.arange(ndof) if padded else np.nonzero(n > k)[0]
+        idx = row_ptr[has] + np.minimum(k, n[has] - 1)
+        real = n[has] > k
+        rows = np.where(real[:, None], ke[:, e[idx], i[idx], :], 0.0)
+        return has, rows, np.where(real[:, None], lm[e[idx]], own[has])
 
     def pull(a, ss, has, rows, cols):
         for j in range(edof):
@@ -141,14 +146,14 @@ def _emulate_quad4_kernel(ke, lm, row_ptr, ent, coeffs, u, groups):
     q = np.full_like(u, np.nan)
     for g in range(groups):
         s_begin, s_end = g * B // groups, (g + 1) * B // groups
-        registers = [entry(k) for k in range(MAXE)]
-        for s in range(s_begin, s_end, 2):
-            ss = np.arange(s, min(s + 2, s_end))
-            a = np.zeros((2, len(ss), ndof))
+        registers = [entry(k, pad) for k in range(MAXE)]
+        for s in range(s_begin, s_end, step):
+            ss = np.arange(s, min(s + step, s_end))
+            a = np.zeros((2, len(ss), ndof), dtype=u.dtype)
             for has, rows, cols in registers:
                 pull(a, ss, has, rows, cols)
             for k in range(MAXE, n.max(initial=0)):
-                pull(a, ss, *entry(k))
+                pull(a, ss, *entry(k, False))
             q[ss] = coeffs[ss, :1] * a[0] + coeffs[ss, 1:] * a[1]
     return q
 
@@ -177,6 +182,26 @@ def test_register_then_overflow_pull_on_doubled_elements_f64(name, groups):
         ke = coeffs[b, 0] * jmodel.ke_lam + coeffs[b, 1] * jmodel.ke_mu
         want = 2 * np.asarray(jax_element_matvec(ke, jmodel.lm, jnp.asarray(u[b]), jmodel.ndof))
         assert np.abs(q[b] - want).max() <= 1e-12 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_zero_weight_register_entries_change_no_bit(dtype):
+    """The kernel gives a dof with fewer than MAXE entries zero-weight
+    entries on its own node's columns instead of a branch: for finite u that
+    adds +0 to sums that are never -0, so q's bits are those of the
+    unpadded order (Cook's 8x4: dofs with 1, 2 and 4 entries)."""
+    model = build_fem_model(cooks_membrane_mesh(8, 4), device="cpu", dense=False)
+    ke = np.stack([model.ke_lam.numpy(), model.ke_mu.numpy()]).astype(dtype)
+    lm = model.lm.numpy()
+    row_ptr, ent = dof_incidence(lm, model.ndof)
+    assert set(np.diff(row_ptr)) == {1, 2, 4}
+    coeffs, u = _inputs(6, model.ndof, seed=13, dtype=dtype)
+    u[0, :4] = 0.0  # zero and -0 inputs too
+    u[1, 4:8] = -0.0
+    padded, plain_order = (_emulate_quad4_kernel(ke, lm, row_ptr, ent, coeffs, u, 2, pad=p)
+                           for p in (True, False))
+    assert padded.dtype == dtype
+    assert np.array_equal(padded.view(np.uint8), plain_order.view(np.uint8))
 
 
 @pytest.mark.parametrize("make,most", [

@@ -29,50 +29,59 @@
 // float32 the function moves u (26.7 MB) and q (26.7 MB) once and the
 // element blocks (6.6 MB) once, ~60 MB, 18 us at 3.35 TB/s; it does 0.84
 // GFLOP, 13 us at 67 TFLOP/s. So HBM bounds the function (float64: ~36 us).
-// What bounds a pull kernel is the L1's wavefronts (one 128-byte line a
-// clock per SM): a warp's 32 dofs read scattered element rows (~16 lines a
-// request on Cook's numbering) but u values of neighbouring nodes (~1.65
-// lines a request). Reading the rows again for every 8 samples, as the
-// first form of this kernel did (the hex8 body below), spends ~70 % of the
-// wavefronts on rows: 41 M at the size above, 0.177 ms at 1.755 GHz.
+// A pull kernel is held back by its gathers instead: each (dof, sample)
+// takes 32 scattered reads of u (u itself fits the 50 MB L2), and the first
+// form of this kernel (the hex8 body below) also read a dof's element rows
+// again for every 8 samples, ~16 cache lines a warp request. It took 0.173
+// ms there (PERF.md).
 //
 // Design of the quad4 body (EDOF 8), float32 and float64: one block per
 // (tile of kThreads dofs, run of samples), the dof tile the fastest block
-// index, so a warp's u requests stay on 1-2 lines on a structured numbering.
+// index, so a warp's u reads stay on 1-2 lines on a structured numbering.
 //   1. Every dof of a quad4 mesh whose nodes are in at most 4 elements has
 //      at most kMaxE = 4 incidence entries (Cook's meshes, structured or
-//      renumbered). At entry a thread loads the rows of its first
-//      min(n_d, kMaxE) entries into registers: ke0[e, i, :], ke1[e, i, :]
-//      and lm[e, :], each row as 16-byte loads (so ke and lm must be
-//      16-byte aligned), 96 values a thread. It keeps them for the block's
-//      whole run of samples, so the rows are read once per run, not once
-//      per 8 samples; the L1 then serves only u.
-//   2. The samples of the run are walked two at a time, each with its own
-//      pair of sums (part 0 and part 1), so two streams of u requests are
-//      in flight; each sum is one chain of FMAs over the entries and then
-//      the columns, in the order of the hex8 body below, and
-//      c0 a0 + c1 a1 is written as that body writes it: the bits are that
-//      body's, whatever the run.
-//   3. A dof with more than kMaxE entries (a node in 5 or more elements of
+//      renumbered). At entry a thread loads the rows of its first kMaxE
+//      entries into registers: ke0[e, i, :], ke1[e, i, :] and lm[e, :],
+//      each row as 16-byte loads (so ke and lm must be 16-byte aligned), 96
+//      values a thread, kept for the block's whole run of samples. An entry
+//      the dof does not have gets zero weights on its own node's columns:
+//      for finite u that adds +0 to a sum that is never -0, so no bit
+//      changes, and every thread runs the same unrolled loads.
+//   2. Where an element node's two dofs are adjacent and aligned in u (a
+//      dof map numbered node by node, as the port's models are), the pair is
+//      read as one 8-byte (float64: 16-byte) load, half the requests;
+//      a thread with any other pair reads u one value at a time.
+//   3. The samples of the run are walked kStep = 4 at a time, each with its
+//      own pair of sums (part 0 and part 1): 64 independent loads a step
+//      keep the gathers' latency covered with two blocks an SM (255
+//      registers a thread); one and two samples a step were 20-60 % slower.
+//      Each sum is one chain of FMAs over the entries and then the columns,
+//      in the order of the hex8 body below, and c0 a0 + c1 a1 is written as
+//      that body writes it: the bits are that body's, whatever the run.
+//   4. A dof with more than kMaxE entries (a node in 5 or more elements of
 //      an unstructured mesh) takes its entries kMaxE.. inside the sample
 //      loop, after its register entries and in the same order, reading
 //      their rows from global memory: one kernel and one order, exact on
 //      every mesh.
-//   4. The launcher picks the number of runs G on the card: the largest G
-//      whose tiles x G blocks fit in one wave (blocks an SM holds, from the
-//      occupancy of the built kernel, times the SMs), at least 1, at most
-//      B; cached per device. The runs are balanced (their lengths differ by
-//      at most one).
+//   5. The launcher picks the number of runs G a dof tile on the card: the
+//      runs whose blocks fill one wave (blocks an SM holds, from the
+//      occupancy of the built kernel, times the SMs), or B / kRun if that is
+//      more (at 160x80 one wave is a single run of all B samples, and runs
+//      of 32 over several waves balance the SMs better in float64), in runs
+//      of at least kStep samples; cached per device. The runs are balanced
+//      (their lengths differ by at most one).
 // hex8 (EDOF 24) keeps the first form: one block per (dof tile, tile of
 // kTile samples), the rows read per tile. Its rows (up to 8 entries x 48
 // coefficients a dof) do not fit in registers, and no timed path runs it:
 // the 3-D paths run the stencil kernel.
 //
 // Not yet done (later work): one thread a node (both dofs of a node share
-// each u request), a sample-major u layout.
+// each u read, and half the address arithmetic goes), a sample-major u
+// layout.
 
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <atomic>
 #include <cstddef>
 
@@ -82,20 +91,10 @@ constexpr int kThreads = 128;  // dofs a block
 constexpr int kTile = 8;       // samples a block of the hex8 body
 constexpr int kQuad = 8;       // EDOF of quad4
 constexpr int kMaxE = 4;       // incidence entries a quad4 thread holds in registers
+constexpr int kStep = 4;       // samples a quad4 thread takes at a time
+constexpr int kQuad4Blocks = 2;  // quad4 blocks an SM holds: 255 registers a thread
+constexpr int kRun = 32;       // samples of a run at large B (several waves balance the SMs)
 constexpr int kMaxDevices = 64;
-
-// Blocks of the quad4 body an SM must hold: bounds its registers (f32 128,
-// f64 255), so that enough warps hide the u gathers' latency.
-template <typename T>
-struct Quad4Blocks;
-template <>
-struct Quad4Blocks<float> {
-  static constexpr int value = 4;
-};
-template <>
-struct Quad4Blocks<double> {
-  static constexpr int value = 2;
-};
 
 // the 8 values of a 32-byte (int, float) or 64-byte (double) row as 16-byte loads
 __device__ __forceinline__ void load_row(const float* p, float (&r)[kQuad]) {
@@ -121,11 +120,62 @@ __device__ __forceinline__ void load_row(const double* p, double (&r)[kQuad]) {
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads, Quad4Blocks<T>::value)
+struct Pair;  // a node's two values of u, one aligned vector
+template <>
+struct Pair<float> {
+  using type = float2;
+};
+template <>
+struct Pair<double> {
+  using type = double2;
+};
+
+// The register entries' part of kStep samples' sums, entry by entry and
+// column by column; kPaired reads columns 2a and 2a + 1 (an element node's
+// two dofs, adjacent in u) as one vector.
+template <typename T, bool kPaired>
+__device__ __forceinline__ void pull_registers(const T* const (&us)[kStep],
+                                               const T (&w0)[kMaxE][kQuad],
+                                               const T (&w1)[kMaxE][kQuad],
+                                               const int (&col)[kMaxE][kQuad], T (&a0)[kStep],
+                                               T (&a1)[kStep]) {
+#pragma unroll
+  for (int k = 0; k < kMaxE; ++k) {
+#pragma unroll
+    for (int a = 0; a < kQuad / 2; ++a) {
+      T x[kStep][2];
+#pragma unroll
+      for (int t = 0; t < kStep; ++t) {
+        if (kPaired) {
+          const auto v = __ldg(reinterpret_cast<const typename Pair<T>::type*>(
+              us[t] + col[k][2 * a]));
+          x[t][0] = v.x;
+          x[t][1] = v.y;
+        } else {
+          x[t][0] = __ldg(us[t] + col[k][2 * a]);
+          x[t][1] = __ldg(us[t] + col[k][2 * a + 1]);
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+#pragma unroll
+        for (int t = 0; t < kStep; ++t) {
+          a0[t] = fma(w0[k][2 * a + h], x[t][h], a0[t]);
+          a1[t] = fma(w1[k][2 * a + h], x[t][h], a1[t]);
+        }
+      }
+    }
+  }
+}
+
+// pairs: ndof is even and u aligned to two values, so that a dof pair
+// (2m, 2m + 1) of u is one aligned vector in every row
+template <typename T>
+__global__ void __launch_bounds__(kThreads, kQuad4Blocks)
     element_affine_quad4_kernel(const T* __restrict__ ke, const int* __restrict__ lm,
                                 const int* __restrict__ row_ptr, const int* __restrict__ ent,
                                 const T* __restrict__ coeffs, const T* __restrict__ u,
-                                T* __restrict__ q, int B, int ndof, int nele) {
+                                T* __restrict__ q, int B, int ndof, int nele, bool pairs) {
   const int d = blockIdx.x * kThreads + threadIdx.x;
   if (d >= ndof) return;
   const int G = gridDim.y;
@@ -134,14 +184,16 @@ __global__ void __launch_bounds__(kThreads, Quad4Blocks<T>::value)
   const size_t part = static_cast<size_t>(nele) * kQuad * kQuad;
   const int k_begin = __ldg(row_ptr + d);
   const int k_end = __ldg(row_ptr + d + 1);
-  const int n_reg = min(k_end - k_begin, kMaxE);
 
-  // 1. the register entries' rows, once for the run
+  // 1. the register entries' rows, once for the run; an entry the dof does
+  //    not have gets zero weights on columns of its own node (for finite u
+  //    it adds +0 to a sum that is never -0: no bit changes)
   T w0[kMaxE][kQuad], w1[kMaxE][kQuad];
   int col[kMaxE][kQuad];
+  bool paired = pairs;
 #pragma unroll
   for (int k = 0; k < kMaxE; ++k) {
-    if (k < n_reg) {
+    if (k < k_end - k_begin) {
       const int ei = __ldg(ent + k_begin + k);  // e * 8 + i
       load_row(ke + static_cast<size_t>(ei) * kQuad, w0[k]);
       load_row(ke + part + static_cast<size_t>(ei) * kQuad, w1[k]);
@@ -150,32 +202,28 @@ __global__ void __launch_bounds__(kThreads, Quad4Blocks<T>::value)
 #pragma unroll
       for (int j = 0; j < kQuad; ++j) {
         w0[k][j] = w1[k][j] = T(0);
-        col[k][j] = 0;
+        col[k][j] = pairs ? (d & ~1) + (j & 1) : d;
       }
     }
+#pragma unroll
+    for (int a = 0; a < kQuad / 2; ++a)
+      paired &= (col[k][2 * a] & 1) == 0 && col[k][2 * a + 1] == col[k][2 * a] + 1;
   }
 
-  // 2. the run's samples, two at a time (the second repeats the first at an
-  //    odd run's end and is not stored)
-  for (int s = s_begin; s < s_end; s += 2) {
-    const bool pair = s + 1 < s_end;
-    const T* u0 = u + static_cast<size_t>(s) * ndof;
-    const T* u1 = pair ? u0 + ndof : u0;
-    T a00 = T(0), a10 = T(0), a01 = T(0), a11 = T(0);  // a<part><sample>
+  // 2. the run's samples, kStep at a time (past the run's end a slot
+  //    repeats its last sample and is not stored)
+  for (int s = s_begin; s < s_end; s += kStep) {
+    const T* us[kStep];
+    T a0[kStep], a1[kStep];
 #pragma unroll
-    for (int k = 0; k < kMaxE; ++k) {
-      if (k < n_reg) {
-#pragma unroll
-        for (int j = 0; j < kQuad; ++j) {
-          const T x0 = __ldg(u0 + col[k][j]);
-          const T x1 = __ldg(u1 + col[k][j]);
-          a00 = fma(w0[k][j], x0, a00);
-          a10 = fma(w1[k][j], x0, a10);
-          a01 = fma(w0[k][j], x1, a01);
-          a11 = fma(w1[k][j], x1, a11);
-        }
-      }
+    for (int t = 0; t < kStep; ++t) {
+      us[t] = u + static_cast<size_t>(min(s + t, s_end - 1)) * ndof;
+      a0[t] = a1[t] = T(0);
     }
+    if (paired)
+      pull_registers<T, true>(us, w0, w1, col, a0, a1);
+    else
+      pull_registers<T, false>(us, w0, w1, col, a0, a1);
     // 3. entries beyond the registers, rows from global memory
     for (int k = k_begin + kMaxE; k < k_end; ++k) {
       const int ei = __ldg(ent + k);
@@ -187,17 +235,21 @@ __global__ void __launch_bounds__(kThreads, Quad4Blocks<T>::value)
         const int c = __ldg(lme + j);
         const T v0 = __ldg(k0 + j);
         const T v1 = __ldg(k1 + j);
-        const T x0 = __ldg(u0 + c);
-        const T x1 = __ldg(u1 + c);
-        a00 = fma(v0, x0, a00);
-        a10 = fma(v1, x0, a10);
-        a01 = fma(v0, x1, a01);
-        a11 = fma(v1, x1, a11);
+#pragma unroll
+        for (int t = 0; t < kStep; ++t) {
+          const T x = __ldg(us[t] + c);
+          a0[t] = fma(v0, x, a0[t]);
+          a1[t] = fma(v1, x, a1[t]);
+        }
       }
     }
-    const T* c = coeffs + 2 * static_cast<size_t>(s);
-    q[static_cast<size_t>(s) * ndof + d] = __ldg(c) * a00 + __ldg(c + 1) * a10;
-    if (pair) q[static_cast<size_t>(s + 1) * ndof + d] = __ldg(c + 2) * a01 + __ldg(c + 3) * a11;
+#pragma unroll
+    for (int t = 0; t < kStep; ++t) {
+      if (s + t < s_end) {
+        const T* c = coeffs + 2 * static_cast<size_t>(s + t);
+        q[static_cast<size_t>(s + t) * ndof + d] = __ldg(c) * a0[t] + __ldg(c + 1) * a1[t];
+      }
+    }
   }
 }
 
@@ -285,9 +337,13 @@ int plan(int B, int ndof, int edof, int* out) {
     int per_sm = 0, sms = 0;
     const cudaError_t err = quad4_slots<T>(&per_sm, &sms);
     if (err != cudaSuccess) return static_cast<int>(err);
+    // the runs that fill one wave, or B / kRun if more, in runs of at
+    // least kStep samples
     const long long tiles = (ndof + kThreads - 1) / kThreads;
-    const long long groups = static_cast<long long>(per_sm) * sms / tiles;
-    out[0] = static_cast<int>(groups < 1 ? 1 : (groups > B ? B : groups));
+    const long long wave = static_cast<long long>(per_sm) * sms / tiles;
+    const long long groups = std::min(std::max(wave, static_cast<long long>(B / kRun)),
+                                      static_cast<long long>(std::max(1, B / kStep)));
+    out[0] = static_cast<int>(std::max(1LL, groups));
     out[1] = per_sm;
     out[2] = kMaxE;
     return 0;
@@ -325,8 +381,9 @@ int launch(const void* ke, const void* lm, const void* row_ptr, const void* ent,
     // the rows are read as 16-byte vectors
     if (reinterpret_cast<size_t>(ke) % 16 || reinterpret_cast<size_t>(lm) % 16)
       return static_cast<int>(cudaErrorInvalidValue);
+    const bool pairs = ndof % 2 == 0 && reinterpret_cast<size_t>(u) % (2 * sizeof(T)) == 0;
     element_affine_quad4_kernel<T><<<grid, kThreads, 0, st>>>(
-        ke_, lm_, row_ptr_, ent_, coeffs_, u_, static_cast<T*>(q), B, ndof, nele);
+        ke_, lm_, row_ptr_, ent_, coeffs_, u_, static_cast<T*>(q), B, ndof, nele, pairs);
   } else {  // hex8, 3 dofs a node
     element_affine_kernel<T, 24><<<grid, kThreads, 0, st>>>(
         ke_, lm_, row_ptr_, ent_, coeffs_, u_, static_cast<T*>(q), B, ndof, nele);
