@@ -238,7 +238,7 @@ def stencil_least_time(planes, c, u):
 
 
 def stencil_fields(times, tag=""):
-    """A stencil kernel's JSON fields from stencil_times' records by dtype:
+    """A stencil kernel's JSON fields from kernel_times' records by dtype:
     the float32 ones under their own names, the float64 ones with "_f64",
     all with ``tag`` (a shape) appended."""
     out = {}
@@ -316,8 +316,8 @@ def graph_ms(fn, reps=20, replays=10):
     return graph_time_s(fn, reps, replays) * 1e3
 
 
-def stencil_times(kernel, plain, bound, reps=100, plain_reps=5):
-    """A stencil kernel's record at one shape and dtype: device time
+def kernel_times(kernel, plain, bound, reps=100, plain_reps=5):
+    """A kernel's record at one shape and dtype: device time
     (graph_ms) of the kernel and its plain version, timed plain, kernel,
     kernel, plain (the better of each pair), the kernel's eager time
     (CUDA events around Python calls, host time included), its bound and
@@ -828,7 +828,7 @@ def scaled_path(dev, card):
     saved = stencil_affine_matvec.launches
     for dtype in (torch.float32, torch.float64):
         u, c = u64.to(dtype), c64.to(dtype)
-        t = stencil_times(lambda: op.affine(c, u),
+        t = kernel_times(lambda: op.affine(c, u),
                           lambda: stencil_affine_reference(op.W[dtype], c, u),
                           stencil_least_time(op.planes[dtype], c, u))
         K, uT = assembled_csr(model, dtype), u.T.contiguous()
@@ -929,7 +929,7 @@ def element_path(dev, card):
         nbytes = ((2 * u.numel() + op.ke[dtype].numel() + c.numel()) * u.element_size()
                   + 4 * op.lm.numel())
         flops = 2 * op.ke[dtype].numel() * B + 3 * u.numel()
-        t = stencil_times(lambda: op.affine(c, u),
+        t = kernel_times(lambda: op.affine(c, u),
                           lambda: element_affine_matvec(op.ke[dtype], m.lm, c, u, m.ndof),
                           least_time(nbytes, flops, dtype), plain_reps=2 if B > 16 else 5)
         t["plan"] = launch_plan(B, m.ndof, op.lm.shape[1], dtype)
@@ -1551,7 +1551,7 @@ def box3d_path(dev, card):
         c64, u64 = cases[cells]
         for dtype in (torch.float32, torch.float64):
             u, c, W = u64.to(dtype), c64.to(dtype), op.W.to(dev, dtype)
-            t = stencil_times(lambda: op.affine(c, u),
+            t = kernel_times(lambda: op.affine(c, u),
                               lambda: stencil3d_affine_reference(W, c, u),
                               stencil_least_time(op.planes[dtype], c, u))
             K, uT = assembled_csr(models[cells], dtype), u.T.contiguous()

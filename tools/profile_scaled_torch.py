@@ -37,7 +37,7 @@ import time
 import numpy as np
 
 FAMILIES = (  # (family, substrings of the kernel name), first match wins
-    ("element kernel", ("element_affine_kernel", "element_affine_quad4_kernel")),
+    ("element kernel", ("element_affine",)),
     ("stencil3d kernel", ("stencil3d_affine_kernel",)),
     ("stencil kernel", ("stencil_affine_kernel",)),
     ("spectral kernel", ("spectral_apply_kernel", "spectral_combine_kernel")),

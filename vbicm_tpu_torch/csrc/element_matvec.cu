@@ -326,50 +326,45 @@ cudaError_t quad4_slots(int* blocks_per_sm, int* sms) {
   return cudaSuccess;
 }
 
-// out[3] = (sample groups G, blocks an SM holds, register entries a thread)
-// of a launch at (B, ndof, edof) on the current device: for quad4 the runs
-// of the design above, for hex8 the tiles of kTile samples (no register
+// The quad4 body's runs a dof tile: the runs that fill one wave of blocks
+// (per_sm blocks on each of sms SMs), or B / kRun if more, in runs of at
+// least kStep samples.
+int quad4_groups(int B, int ndof, int per_sm, int sms) {
+  const long long tiles = (ndof + kThreads - 1) / kThreads;
+  const long long wave = static_cast<long long>(per_sm) * sms / tiles;
+  const long long groups = std::min(std::max(wave, static_cast<long long>(B / kRun)),
+                                    static_cast<long long>(B / kStep));
+  return static_cast<int>(std::max(1LL, groups));
+}
+
+// out[3] = (sample groups, blocks an SM holds, register entries a thread) of
+// a launch at (B, ndof, edof) on the current device: for quad4 the runs of
+// the design above, for hex8 the tiles of kTile samples (no register
 // entries).
 template <typename T>
 int plan(int B, int ndof, int edof, int* out) {
   if (B <= 0 || ndof <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaErrorInvalidValue;
   if (edof == kQuad) {
-    int per_sm = 0, sms = 0;
-    const cudaError_t err = quad4_slots<T>(&per_sm, &sms);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    // the runs that fill one wave, or B / kRun if more, in runs of at
-    // least kStep samples
-    const long long tiles = (ndof + kThreads - 1) / kThreads;
-    const long long wave = static_cast<long long>(per_sm) * sms / tiles;
-    const long long groups = std::min(std::max(wave, static_cast<long long>(B / kRun)),
-                                      static_cast<long long>(std::max(1, B / kStep)));
-    out[0] = static_cast<int>(std::max(1LL, groups));
-    out[1] = per_sm;
+    int sms = 0;
+    err = quad4_slots<T>(&out[1], &sms);
+    out[0] = quad4_groups(B, ndof, out[1], sms);
     out[2] = kMaxE;
-    return 0;
-  }
-  if (edof == 24) {
-    int per_sm = 0;
-    const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, element_affine_kernel<T, 24>, kThreads, 0);
-    if (err != cudaSuccess) return static_cast<int>(err);
+  } else if (edof == 24) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[1], element_affine_kernel<T, 24>,
+                                                        kThreads, 0);
     out[0] = (B + kTile - 1) / kTile;
-    out[1] = per_sm;
     out[2] = 0;
-    return out[0] > 65535 ? static_cast<int>(cudaErrorInvalidValue) : 0;
   }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(err);
 }
 
 template <typename T>
 int launch(const void* ke, const void* lm, const void* row_ptr, const void* ent,
            const void* coeffs, const void* u, void* q, int B, int ndof, int nele, int edof,
            void* stream) {
-  if (nele <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  int p[3];
-  const int err = plan<T>(B, ndof, edof, p);
-  if (err != 0) return err;
-  const dim3 grid((ndof + kThreads - 1) / kThreads, p[0]);
+  if (B <= 0 || ndof <= 0 || nele <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned tiles = (ndof + kThreads - 1) / kThreads;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const T* ke_ = static_cast<const T*>(ke);
   const int* lm_ = static_cast<const int*>(lm);
@@ -381,12 +376,19 @@ int launch(const void* ke, const void* lm, const void* row_ptr, const void* ent,
     // the rows are read as 16-byte vectors
     if (reinterpret_cast<size_t>(ke) % 16 || reinterpret_cast<size_t>(lm) % 16)
       return static_cast<int>(cudaErrorInvalidValue);
+    int per_sm = 0, sms = 0;
+    const cudaError_t err = quad4_slots<T>(&per_sm, &sms);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const dim3 grid(tiles, quad4_groups(B, ndof, per_sm, sms));
     const bool pairs = ndof % 2 == 0 && reinterpret_cast<size_t>(u) % (2 * sizeof(T)) == 0;
     element_affine_quad4_kernel<T><<<grid, kThreads, 0, st>>>(
         ke_, lm_, row_ptr_, ent_, coeffs_, u_, static_cast<T*>(q), B, ndof, nele, pairs);
-  } else {  // hex8, 3 dofs a node
+  } else if (edof == 24 && (B + kTile - 1) / kTile <= 65535) {  // hex8, 3 dofs a node
+    const dim3 grid(tiles, (B + kTile - 1) / kTile);
     element_affine_kernel<T, 24><<<grid, kThreads, 0, st>>>(
         ke_, lm_, row_ptr_, ent_, coeffs_, u_, static_cast<T*>(q), B, ndof, nele);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -10,9 +10,9 @@ element entries through the incidence tables of
 ``ops.assembly.dof_incidence``, so the sums run in a fixed order and
 repeat bit for bit. For quad4 a thread holds the rows of its first
 ``MAXE`` entries in registers over a run of samples and reads any further
-entries' rows from memory, in the same order. The plain version is ``ops.assembly.
-element_affine_matvec`` (gather, einsum, ``index_add_`` through ``lm``), so
-a fault in the tables cannot hide in both. On CPU tensors the wrapper runs
+entries' rows from memory, in the same order. The plain version is
+``ops.assembly.element_affine_matvec`` (gather, einsum, ``index_add_``
+through ``lm``), so a fault in the tables cannot hide in both. On CPU tensors the wrapper runs
 the plain version; on CUDA tensors it launches the kernel or raises.
 """
 from __future__ import annotations
