@@ -39,10 +39,11 @@ before and read just after:
   probe against its plain version, and
   examples/stencil_kernel_study_torch.py's main at 160x80, B = 256.
 
-Phase 1 fails if a spectral, stencil or quad4 element kernel spills
-registers; phases 2, 8, 13 and 18 hold two calls of a kernel bitwise equal;
-the stencil and element kernels are timed by device time (CUDA graphs)
-beside eager time in float32 and float64, each with its share of its bound.
+Phase 1 fails if a spectral, stencil, quad4 element or banded kernel spills
+registers; phases 2, 8, 13, 18 and 25 hold two calls of a kernel bitwise
+equal; the stencil, element and banded kernels are timed by device time
+(CUDA graphs) beside eager time, each with its share of its bound (the
+banded kernel also with the bound of the band blocks it reads).
 
 Prints one line per phase, the card's name and power limit, a JSON line with
 the kernels' records (each with its bound: the larger of the bytes it must
@@ -130,6 +131,9 @@ PROBE_MAIN = (256, 81, 384)  # the study's: B = 256, NY = 81, XLP = 384
 # Against the float64 stencil: tests/test_pallas.py's bounds.
 MXU_TOL_PLAIN = 5e-6
 MXU_TOL_EXACT = {"f32": 5e-6, "bf16x3": 5e-5}
+# kernel #6's batches: the stencil kernel's, and 64 and 128, one and two
+# whole tiles of its 64 samples
+MXU_BATCHES = [1, 5, 64, 128, 256, 300]
 
 
 def fail(msg):
@@ -378,8 +382,15 @@ def main():
     _, build_s, build_log = _build.load_library()
     import re
 
-    regs, spectral, stencils, elements, spilled = [], [], [], [], []
+    regs, spectral, stencils, elements, banded, spilled = [], [], [], [], [], []
     for kname, (nreg, st, ld) in ptxas_by_kernel(build_log).items():
+        bk = re.search(r"stencil_mxu_kernelI.*(Bf16x3|Tf32x3)", kname)
+        if bk is not None:
+            label = {"Bf16x3": "bf16x3", "Tf32x3": "f32"}[bk.group(1)]
+            banded.append(f"{label}: {nreg} regs, {st}+{ld} B spilled")
+            if st or ld:
+                spilled.append(f"banded kernel {label} spills ({st} B stored, {ld} B loaded)")
+            continue
         ek = re.search(r"element_affine_(quad4_)?kernelI([fd])", kname)
         if ek is not None:
             label = (f"{'quad4' if ek.group(1) else 'hex8'} "
@@ -424,10 +435,13 @@ def main():
     if len(elements) != 2 + 2:
         fail(f"expected 4 element kernels (quad4, hex8 x f32, f64) in the ptxas log, found "
              f"{elements}")
+    # the banded tensor-core kernel, bf16x3 and f32
+    if len(banded) != 2:
+        fail(f"expected 2 banded kernels (bf16x3, f32) in the ptxas log, found {banded}")
     print(f"[1 card] {card}; torch {torch.__version__} cuda {torch.version.cuda}; "
           f"kernel build {build_s:.2f}s; ptxas spectral (dtype, tile, launch): "
           f"{'; '.join(spectral)}; stencils: {'; '.join(stencils)}; element: "
-          f"{'; '.join(elements)}; other kernels: "
+          f"{'; '.join(elements)}; banded: {'; '.join(banded)}; other kernels: "
           f"{' | '.join(regs)}", flush=True)
     if spilled:
         fail("; ".join(spilled))
@@ -642,18 +656,17 @@ def main():
         "launches_by_path": {"stencil_study_160x80": study["mxu_launches"]},
         "mode": "bf16x3",
         "max_abs_err": study["mxu_abs_err"]["bf16x3"],
-        "ms": mxu["bf16x3"][0],
-        "plain_ms": mxu["bf16x3"][1],
-        "bound_ms": study["stencil_bound"][0],  # the function's (kernel #2's)
-        "bound_by": study["stencil_bound"][1],
+        "ms": mxu["bf16x3"]["ms"],
+        "plain_ms": mxu["bf16x3"]["plain_ms"],
+        "bound_ms": mxu["bf16x3"]["bound_ms"],  # the function's (kernel #2's)
+        "bound_by": mxu["bf16x3"]["bound_by"],
         "library_ms": scaled["stencil_ms"][f32]["library_ms"],
-        "bound_ms_densified": mxu["bf16x3"][2][0],
-        "bound_by_densified": mxu["bf16x3"][2][1],
-        "ms_f32": mxu["f32"][0],
-        "plain_ms_f32": mxu["f32"][1],
+        **{f"{key}{tag}": mxu[mode][key]
+           for mode, tag in (("bf16x3", ""), ("f32", "_f32"))
+           for key in ("ms", "plain_ms", "ms_eager", "bound_ms", "bound_by", "share_of_bound",
+                       "bound_ms_band", "bound_by_band", "share_of_band_bound",
+                       "bound_ms_densified", "bound_by_densified", "groups")},
         "max_abs_err_f32": study["mxu_abs_err"]["f32"],
-        "bound_ms_densified_f32": mxu["f32"][2][0],
-        "bound_by_densified_f32": mxu["f32"][2][1],
     }, {
         "name": "fma_peak_probe",
         "route": "cuda",
@@ -1159,6 +1172,9 @@ def study_path(dev, card):
     from vbicm_tpu_torch.ops.stencil_mxu import (
         KDIM,
         MODES,
+        band_flops,
+        band_table_bytes,
+        launch_plan,
         n_tiles,
         pack_w_bands,
         stencil_affine_matvec_mxu,
@@ -1227,14 +1243,14 @@ def study_path(dev, card):
     stencil_affine_matvec.launches, stencil_affine_matvec.rows_launches = saved
 
     # 25. the banded tensor-core kernel against its plain version and the
-    #     float64 stencil, both modes
+    #     float64 stencil, both modes, two calls bitwise equal
     saved = stencil_affine_matvec_mxu.launches
     worst = {}
     for (nx, ny), W in tables.items():
         NY, NX = ny + 1, nx + 1
         m_all = {"f32": pack_w_bands(W, "f32").to(dev),
                  "bf16x3": tuple(m.to(dev) for m in pack_w_bands(W, "bf16x3"))}
-        for B in STENCIL_BATCHES:
+        for B in MXU_BATCHES:
             rng = np.random.default_rng(B + nx + 25)
             u64 = torch.as_tensor(rng.normal(size=(B, 2 * NY * NX)), device=dev)
             c64 = torch.as_tensor(rng.uniform(1.0, 3.0, (B, 2)), device=dev)
@@ -1242,6 +1258,7 @@ def study_path(dev, card):
             u, c = u64.to(f32), c64.to(f32)
             for mode in MODES:
                 q = stencil_affine_matvec_mxu(m_all[mode], c, u, NY, NX, mode)
+                q2 = stencil_affine_matvec_mxu(m_all[mode], c, u, NY, NX, mode)
                 qp = stencil_affine_mxu_reference(m_all[mode], c, u, NY, NX, mode)
                 torch.cuda.synchronize()
                 errs = (rel_err(q, qp), rel_err(q.to(f64), q64))
@@ -1249,6 +1266,9 @@ def study_path(dev, card):
                     fail(f"banded kernel {mode} at {nx}x{ny} B={B}: rel err (of max|q|) vs plain "
                          f"{errs[0]}, vs f64 {errs[1]}; bounds {MXU_TOL_PLAIN}, "
                          f"{MXU_TOL_EXACT[mode]}")
+                if not torch.equal(q, q2):
+                    fail(f"banded kernel {mode} at {nx}x{ny} B={B}: two calls are not bitwise "
+                         "equal")
                 w = worst.setdefault(mode, [0.0, 0.0])
                 w[0], w[1] = max(w[0], errs[0]), max(w[1], errs[1])
                 if (nx, B) == STENCIL_MAIN:
@@ -1261,24 +1281,37 @@ def study_path(dev, card):
     print(f"[25 banded] ok: rel err (of max|q|) vs plain / vs f64 stencil: f32 (3xTF32) "
           f"{worst['f32'][0]:.3e} / {worst['f32'][1]:.3e}, bf16x3 {worst['bf16x3'][0]:.3e} / "
           f"{worst['bf16x3'][1]:.3e} (tol {MXU_TOL_PLAIN:g} / {MXU_TOL_EXACT}) over grids "
-          f"{STENCIL_GRIDS} (T = 1, 1, 3) x B in {STENCIL_BATCHES}", flush=True)
+          f"{STENCIL_GRIDS} (T = 1, 1, 3) x B in {MXU_BATCHES}; two calls bitwise equal",
+          flush=True)
     c64, u64 = main_case
     u, c = u64.to(f32), c64.to(f32)
+    B = u.shape[0]
     NY, NX = STENCIL_MAIN[0] // 2 + 1, STENCIL_MAIN[0] + 1
-    dense_flops = 3 * 2.0 * u.shape[0] * KDIM * 256 * NY * n_tiles(NX)
+    dense_flops = 3 * 2.0 * B * KDIM * 256 * NY * n_tiles(NX)
+    uq_bytes = (2 * u.numel() + c.numel()) * 4
     out["mxu_ms"] = {}
     for mode, unit in (("bf16x3", "bf16_tc"), ("f32", "tf32_tc")):
         mb = main_tables[mode]
-        k_ms = time_ms(lambda: stencil_affine_matvec_mxu(mb, c, u, NY, NX, mode), reps=100)
-        p_ms = time_ms(lambda: stencil_affine_mxu_reference(mb, c, u, NY, NX, mode), warmup=3,
-                       reps=20)
         tbytes = sum(t.numel() * t.element_size() for t in (mb if mode == "bf16x3" else (mb,)))
-        own = least_time(tbytes + 2 * u.numel() * 4 + c.numel() * 4, dense_flops, unit=unit)
-        out["mxu_ms"][mode] = (k_ms, p_ms, own)
-        print(f"[25 times] banded stencil (B=256, 160x80) {mode}: kernel {k_ms:.4f} ms, plain "
-              f"{p_ms:.4f} ms; densified bound {own[0]:.4f} ms ({own[1]}: {tbytes / 1e6:.1f} MB "
-              f"of tables, {dense_flops / 1e9:.2f} GFLOP on {unit}), the function's bound "
-              f"{out['stencil_bound'][0]:.4f} ms, on {card}", flush=True)
+        band_bytes, flops = band_table_bytes(NY, NX, mode), band_flops(B, NY, NX, mode)
+        band = least_time(band_bytes + uq_bytes, flops, unit=unit)
+        dense = least_time(tbytes + uq_bytes, dense_flops, unit=unit)
+        t = kernel_times(lambda: stencil_affine_matvec_mxu(mb, c, u, NY, NX, mode),
+                         lambda: stencil_affine_mxu_reference(mb, c, u, NY, NX, mode),
+                         out["stencil_bound"])
+        t.update(bound_ms_band=band[0], bound_by_band=band[1],
+                 share_of_band_bound=band[0] / t["ms"], bound_ms_densified=dense[0],
+                 bound_by_densified=dense[1], groups=launch_plan(B, NY, NX, mode)[0])
+        out["mxu_ms"][mode] = t
+        print(f"[25 times] banded stencil (B=256, 160x80) {mode}, {t['groups']} sample-tile "
+              f"groups: device kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms; eager "
+              f"kernel {t['ms_eager']:.4f} ms; band-block bound {band[0]:.4f} ms ({band[1]}: "
+              f"{band_bytes / 1e6:.2f} MB of band blocks at 32-byte sectors + "
+              f"{uq_bytes / 1e6:.2f} MB of u, q, coeffs; {flops / 1e9:.3f} GFLOP on {unit}), "
+              f"{100 * t['share_of_band_bound']:.1f} % of it; the function's bound "
+              f"{t['bound_ms']:.4f} ms ({t['bound_by']}), {100 * t['share_of_bound']:.1f} % of "
+              f"it; densified bound {dense[0]:.4f} ms ({dense[1]}: {tbytes / 1e6:.1f} MB of "
+              f"tables, {dense_flops / 1e9:.2f} GFLOP), on {card}", flush=True)
     del main_tables
     stencil_affine_matvec_mxu.launches = saved
 

@@ -18,8 +18,11 @@ Cook's membrane 160x80 (26,082 dofs) at B = 256, and the card's FMA ceiling.
 
 Least bytes count the port's own operands once (u in, q out, and the
 implementation's table: the plain stencil's float32 block tables, the
-kernels' unpadded (NY, 42, 2NX) planes, the banded tables); band flops are
-2 * B * NY * 42 * 2NX. Writes ``summary.json`` under ``--results`` with the
+kernels' unpadded (NY, 42, 2NX) planes, the banded kernel's band blocks at
+32-byte sectors, ``ops/stencil_mxu.py::band_table_bytes``, which are all it
+reads); band flops are 2 * B * NY * 42 * 2NX. The banded kernels also carry
+their densified form's bytes (the whole tables) and bound as
+``densified_*`` fields. Writes ``summary.json`` under ``--results`` with the
 card's name and power limit.
 
     python examples/stencil_kernel_study_torch.py --device cuda
@@ -60,6 +63,7 @@ def main(argv=None):
     from vbicm_tpu_torch.ops.stencil_kernel import stencil_affine_reference
     from vbicm_tpu_torch.ops.stencil_mxu import (
         KDIM,
+        band_table_bytes,
         n_tiles,
         pack_w_bands,
         stencil_affine_matvec_mxu,
@@ -105,8 +109,10 @@ def main(argv=None):
 
     uq_bytes = 2 * 4.0 * B * model.ndof
     planes_bytes = op.planes[f32].numel() * 4.0
-    table_bytes = {"plain_stencil_f32": op.W[f32].numel() * 4.0, "mxu_f32": mf32.numel() * 4.0,
-                   "mxu_bf16x3": (mh.numel() + ml.numel()) * 2.0}
+    table_bytes = {"plain_stencil_f32": op.W[f32].numel() * 4.0,
+                   "mxu_f32": float(band_table_bytes(NY, NX, "f32")),
+                   "mxu_bf16x3": float(band_table_bytes(NY, NX, "bf16x3"))}
+    densified_bytes = {"mxu_f32": mf32.numel() * 4.0, "mxu_bf16x3": (mh.numel() + ml.numel()) * 2.0}
     band_flops = 2.0 * B * NY * 42 * NX2
     dense_flops = 3 * 2.0 * B * KDIM * 256 * NY * n_tiles(NX)  # three products either mode
     peaks = device_peaks(device)
@@ -127,10 +133,12 @@ def main(argv=None):
                **mfu_fields(band_flops, nbytes, 1.0 / dt, device, unit="fp32")}
         if key.startswith("mxu"):
             unit = "bf16_tc" if key == "mxu_bf16x3" else "tf32_tc"
-            own_s, own_by = least_time_s(nbytes, dense_flops, unit, device)
-            rec.update(densified_bound_ms=own_s * 1e3, densified_bound_by=own_by,
+            dense_bytes = uq_bytes + densified_bytes[key]
+            own_s, own_by = least_time_s(dense_bytes, dense_flops, unit, device)
+            rec.update(densified_min_bytes=dense_bytes, densified_bound_ms=own_s * 1e3,
+                       densified_bound_by=own_by,
                        **{f"densified_{k}": v for k, v in
-                          mfu_fields(dense_flops, None, 1.0 / dt, device, unit=unit).items()})
+                          mfu_fields(dense_flops, dense_bytes, 1.0 / dt, device, unit=unit).items()})
         out["impls"][key] = rec
         print(f"{key:18s} {rec['ms']:8.4f} ms  rel {rel:.2e}  bytes-bound {rec['bandwidth_sol_ms']:.4f} "
               f"ms  hbm share {rec.get('hbm_utilization')}  band {rec['band_tflops']:.3f} TFLOP/s",

@@ -5,7 +5,9 @@ package's ``ops/stencil_mxu.py``.
 On the CPU the wrapper runs its plain PyTorch version; the CUDA kernel is
 held against that plain version on the card by chip_smoke.py. 12x6 has one
 128-lane tile a row (2NX = 26); 64x4 has two (2NX = 130), so the tile seam
-is crossed. Inputs are made with numpy from fixed seeds.
+is crossed. Inputs are made with numpy from fixed seeds. The band rule
+(``band_ksteps``: which k-step blocks of a table can be nonzero) is checked
+on both packages' tables: the kernel multiplies and reads only those blocks.
 """
 import jax
 import jax.numpy as jnp
@@ -25,9 +27,13 @@ from vbicm_tpu.ops.stencil_mxu import pack_w_bands as jax_pack_w_bands
 from vbicm_tpu.ops.stencil_mxu import stencil_affine_matvec_mxu as jax_stencil_affine_matvec_mxu
 from vbicm_tpu_torch.ops.stencil_mxu import (
     KDIM,
+    KSTEP,
     LPAD,
     MODES,
     WIN,
+    band_flops,
+    band_ksteps,
+    band_table_bytes,
     band_windows,
     n_tiles,
     pack_w_bands,
@@ -164,3 +170,112 @@ def test_wrapper_and_packing_refuse_bad_input():
     with pytest.raises(ValueError):
         pack_w_bands(np.zeros((2, 2, 2, 3, 3, 2, 2)), "f16")
     assert stencil_affine_matvec_mxu.launches == 0
+
+
+# the band rule's grids: T = 1 with 2NX = 18 and 26 lanes, 2NX = 128 (one full
+# tile), 2NX = 130 (T = 2, 2 lanes in the last tile)
+BAND_GRIDS = [(8, 4), (12, 6), (63, 4), (64, 4)]
+
+
+def _band_mask(NY, NX, kstep):
+    """(NY*T*KDIM, 256) bool: True on the blocks band_ksteps lists."""
+    T = n_tiles(NX)
+    mask = np.zeros((T, KDIM, 256), bool)
+    for t in range(T):
+        for n0 in range(0, 128, 8):
+            for ks in sum(band_ksteps(NX, t, n0, kstep), ()):
+                for p in range(2):
+                    mask[t, ks * kstep:(ks + 1) * kstep, p * 128 + n0:p * 128 + n0 + 8] = True
+    return np.broadcast_to(mask, (NY, T, KDIM, 256)).reshape(NY * T * KDIM, 256)
+
+
+@pytest.mark.parametrize("kstep", sorted(KSTEP.values()))
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("nxy", BAND_GRIDS, ids=lambda g: f"{g[0]}x{g[1]}")
+def test_tables_are_zero_outside_the_band_blocks(nxy, mode, kstep):
+    """Both packages' packed tables (every bfloat16 half) hold no nonzero
+    outside the blocks band_ksteps lists, at either k-step size: the
+    kernel's skip of the other blocks is exact."""
+    nx, ny = nxy
+    W = jax_build_stencil_tables(jax_build_fem_model(jax_cooks_mesh(nx, ny), dense=False), nx, ny)
+    outside = ~_band_mask(ny + 1, nx + 1, kstep)
+    port = pack_w_bands(W, mode)
+    jax_tables = jax_pack_w_bands(W, mode)
+    if mode == "f32":
+        port, jax_tables = (port,), (jax_tables,)
+    for table in (*port, *jax_tables):
+        values = (table.to(torch.float32).numpy() if isinstance(table, torch.Tensor)
+                  else np.asarray(table).astype(np.float32))
+        assert values.any()
+        assert not values[outside].any()
+
+
+@pytest.mark.parametrize("nxy", BAND_GRIDS, ids=lambda g: f"{g[0]}x{g[1]}")
+def test_a_rows_outside_a_slices_band_meet_only_zeros(nxy):
+    """For each 32-lane slice (lanes col0 .. col0 + 31 of a tile, both column
+    halves), the table rows other than w = col0 .. col0 + 37 of each window
+    (row dy*WIN + w) are zero in the slice's columns: the kernel stages u
+    only for those rows and reads zeros for the others, which changes no
+    product. Both packages' tables, every bfloat16 half."""
+    nx, ny = nxy
+    NY, NX = ny + 1, nx + 1
+    W = jax_build_stencil_tables(jax_build_fem_model(jax_cooks_mesh(nx, ny), dense=False), nx, ny)
+    port = pack_w_bands(W, "bf16x3")
+    tables = [*port, pack_w_bands(W, "f32"), *jax_pack_w_bands(W, "bf16x3"),
+              jax_pack_w_bands(W, "f32")]
+    T = n_tiles(NX)
+    rows = np.arange(KDIM)
+    for table in tables:
+        values = (table.to(torch.float32).numpy() if isinstance(table, torch.Tensor)
+                  else np.asarray(table).astype(np.float32)).reshape(NY, T, KDIM, 256)
+        for col0 in range(0, 128, 32):
+            w = rows - (rows // WIN) * WIN
+            band = (rows < 3 * WIN) & (w >= col0) & (w <= col0 + 37)
+            cols = np.r_[col0:col0 + 32, 128 + col0:128 + col0 + 32]
+            assert not values[:, :, ~band][..., cols].any()
+
+
+@pytest.mark.parametrize("NX", [5, 13, 64, 65, 161, 200])
+def test_band_ksteps_per_window_and_past_the_grid(NX):
+    """At most 2 k-steps a window in BF16 (16 rows) and 3 in TF32 (8 rows),
+    ascending and inside the table; none for an n-tile past 2NX; each inside
+    the slice union the kernel stages (3 BF16 or 5 TF32 k-steps a window
+    from (dy*WIN + s*32) // kstep for the 32-lane slice s), 18 BF16 and 24
+    TF32 blocks a column half of a full slice."""
+    for kstep, most, union in ((16, 2, 3), (8, 3, 5)):
+        for t in range(n_tiles(NX) + 1):
+            for s in range(4):
+                blocks = 0
+                for j in range(4):
+                    n0 = 32 * s + 8 * j
+                    lists = band_ksteps(NX, t, n0, kstep)
+                    if t * 128 + n0 >= 2 * NX:
+                        assert lists == ((), (), ())
+                        continue
+                    for dy, ks in enumerate(lists):
+                        first = (dy * WIN + 32 * s) // kstep
+                        assert 1 <= len(ks) <= most and list(ks) == sorted(ks)
+                        assert first <= ks[0] and ks[-1] < first + union
+                        assert ks[-1] < KDIM // kstep
+                        blocks += len(ks)
+                if t * 128 + 32 * s + 31 < 2 * NX:
+                    assert blocks == {16: 18, 8: 24}[kstep]
+    with pytest.raises(ValueError):
+        band_ksteps(NX, 0, 4, 16)
+    with pytest.raises(ValueError):
+        band_ksteps(NX, 0, 8, 32)
+
+
+def test_band_counts_bytes_and_flops_at_160x80():
+    """The study's shape (NY = 81, 2NX = 322, T = 3): 366 of 2,496 BF16 and
+    486 of 4,992 TF32 (k-step, n-tile) blocks a grid row are band blocks;
+    their bytes at 32-byte sectors and the kernel's MMA flops at B = 256."""
+    NY, NX = 81, 161
+    for mode, blocks, dense in (("bf16x3", 366, 2496), ("f32", 486, 4992)):
+        step = KSTEP[mode]
+        n = 2 * sum(len(sum(band_ksteps(NX, t, n0, step), ()))
+                    for t in range(3) for n0 in range(0, 128, 8))
+        assert (n, 3 * 32 * KDIM // step) == (blocks, dense)
+        assert band_flops(256, NY, NX, mode) == 3 * 2.0 * 256 * step * 8 * blocks * NY
+    assert band_table_bytes(NY, NX, "bf16x3") == 20_404_224
+    assert band_table_bytes(NY, NX, "f32") == 10_077_696

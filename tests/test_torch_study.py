@@ -20,6 +20,7 @@ from vbicm_tpu_torch.ops.peak_probe import (
     fma_peak_probe_reference,
     fma_probe_flops,
 )
+from vbicm_tpu_torch.ops.stencil_mxu import band_table_bytes
 from vbicm_tpu_torch.utils import roofline
 from vbicm_tpu_torch.utils.roofline import device_peaks, least_time_s, mfu_fields
 from vbicm_tpu_torch.utils.timing import Timer, benchmark_fn, profile_trace
@@ -149,6 +150,13 @@ def test_study_main_on_the_cpu_at_12x6(tmp_path):
     # the port's unpadded operands: u and q in float32, the (NY, 42, 2NX) planes
     ndof = 2 * 13 * 7
     assert saved["impls"]["stencil_onerow"]["min_bytes"] == 2 * 4 * 4 * ndof + 7 * 42 * 26 * 4
+    # the banded kernel reads only the band blocks; the whole (7 * 416, 256)
+    # tables (4 bytes an entry in either mode) are its densified form's
+    for key, mode in (("mxu_f32", "f32"), ("mxu_bf16x3", "bf16x3")):
+        rec = saved["impls"][key]
+        assert rec["min_bytes"] == 2 * 4 * 4 * ndof + band_table_bytes(7, 13, mode)
+        assert rec["densified_min_bytes"] == 2 * 4 * 4 * ndof + 7 * 416 * 256 * 4
+        assert rec["densified_bound_ms"] >= rec["bandwidth_sol_ms"]
     assert saved["band_flops_per_matvec"] == 2 * 4 * 7 * 42 * 26
     assert set(saved["probe"]) == {"fp32_nfma42", "fp32_nfma64", "fp64_nfma42", "fp64_nfma64"}
     assert saved["fma_ceiling_tflops"]["fp32"] == saved["probe"]["fp32_nfma64"]["tflops"]

@@ -1,7 +1,13 @@
-"""What bounds the 2-D and 3-D stencil kernels: each timed on one GPU as
-built, with its global-to-shared copies removed ("compute": the arithmetic
-on whatever the shared memory holds) and with its arithmetic removed
-("copies": the staging alone), at the launch plan's tiling.
+"""What bounds the 2-D and 3-D stencil kernels and the banded tensor-core
+stencil: each timed on one GPU as built, with its global-to-shared copies
+removed ("compute": the arithmetic on whatever the shared memory holds) and
+with its arithmetic removed ("copies": the staging alone), at the launch
+plan's tiling; the banded kernel also without its u copies alone ("no_u"),
+without its table copies alone ("no_table"), "compute" without its q
+stores ("compute_no_store") and with each MMA replaced by one integer
+operation on its operands ("compute_no_mma"), and with two u buffers and
+two blocks an SM ("two_stages", and its "two_stages_compute") in place of
+one buffer and four blocks, at 160x80 in both modes.
 
 The variants are built from this checkout's kernel sources, edited as text,
 by nvcc into libraries under build/stencil_breakdown/ and launched through
@@ -32,16 +38,42 @@ def _variants():
         src2 = f.read()
     with open(os.path.join(CSRC, "stencil3d_affine.cu")) as f:
         src3 = f.read()
+    with open(os.path.join(CSRC, "stencil_mxu.cu")) as f:
+        srcm = f.read()
+    no_u = ("m < kBM; m += 2)", "m < 0; m += 2)")
+    no_table = ("e < kCopies; e += kThreads)", "e < 0; e += kThreads)")
+
+    def stages(n, blocks):
+        line = srcm[srcm.index("constexpr int kStages"):srcm.index("constexpr int kMinBlocks")]
+        line += srcm[srcm.index("constexpr int kMinBlocks"):].split(";")[0] + ";"
+        return line, f"constexpr int kStages = {n};\nconstexpr int kMinBlocks = {blocks};"
     edits = {
         ("2d", "compute"): [("if (dst[j] >= 0) cp_async_node", "if (false) cp_async_node")],
         ("2d", "copies"): [("if (!active) continue;", "continue;")],
         ("3d", "compute"): [("i < NX3; i += 32) cp_async_value", "i < 0; i += 32) cp_async_value"),
                             ("c < cplane / kVec; c += nthreads)", "c < 0; c += nthreads)")],
         ("3d", "copies"): [("if (!active) continue;", "continue;")],
+        ("mxu", "compute"): [no_u, no_table],
+        ("mxu", "copies"): [("      tile_mma<true>(Mode{}, a_row, Tab, live, lane, acc);\n    else\n"
+                             "      tile_mma<false>(Mode{}, a_row, Tab, live, lane, acc);",
+                             "      ;")],
+        ("mxu", "no_u"): [no_u],
+        ("mxu", "no_table"): [no_table],
+        ("mxu", "compute_no_store"): [no_u, no_table, (
+            "        *reinterpret_cast<float2*>(q + b * ndof",
+            "        if (v.x == 1234.5f) *reinterpret_cast<float2*>(q + b * ndof")],
+        ("mxu", "compute_no_mma"): [no_u, no_table, (
+            "mma_bf16(acc[j][h], p == 1 ? al : ah, b[0], b[1]);",
+            "acc[j][h][p] += __uint_as_float((p == 1 ? al : ah)[p] ^ b[0] ^ b[1]);"), (
+            "mma_tf32(acc[j][h], p == 0 ? asl : ab, b[0], b[1]);",
+            "acc[j][h][p] += __uint_as_float((p == 0 ? asl : ab)[p] ^ b[0] ^ b[1]);")],
+        ("mxu", "two_stages"): [stages(2, 2)],
+        ("mxu", "two_stages_compute"): [stages(2, 2), no_u, no_table],
     }
-    out = {("2d", "whole"): src2, ("3d", "whole"): src3}
+    sources = {"2d": src2, "3d": src3, "mxu": srcm}
+    out = {(kind, "whole"): text for kind, text in sources.items()}
     for (kind, name), pairs in edits.items():
-        out[kind, name] = edited(src2 if kind == "2d" else src3, pairs, f"{kind} {name}")
+        out[kind, name] = edited(sources[kind], pairs, f"{kind} {name}")
     return out
 
 
@@ -109,15 +141,42 @@ def main():
 
     def report(kind, grid, dtype, plan, launch):
         row = {}
-        for name in ("whole", "compute", "copies"):
-            fn = getattr(libs[kind, name], f"vbicm_stencil{'' if kind == '2d' else '3d'}_affine_"
+        names = ("whole", "compute", "copies")
+        if kind == "mxu":
+            names += ("no_u", "no_table", "compute_no_store", "compute_no_mma", "two_stages",
+                      "two_stages_compute")
+        for name in names:
+            if kind == "mxu":
+                entry = f"vbicm_stencil_mxu_{dtype}"
+            else:
+                entry = (f"vbicm_stencil{'' if kind == '2d' else '3d'}_affine_"
                          f"{'f32' if dtype == torch.float32 else 'f64'}")
+            fn = getattr(libs[kind, name], entry)
             err = launch(fn)
             if err:
                 raise RuntimeError(f"{kind} {name} launch failed with CUDA error {err}")
             row[f"{name}_ms"] = graph_time_s(lambda: launch(fn)) * 1e3
-        print(json.dumps({"kernel": kind, "grid": grid, "B": B, "dtype": str(dtype)[6:],
+        print(json.dumps({"kernel": kind, "grid": grid, "B": B,
+                          "dtype": dtype if isinstance(dtype, str) else str(dtype)[6:],
                           "plan": str(plan), **row}), flush=True)
+
+    from vbicm_tpu_torch.ops.stencil import build_stencil_tables
+    from vbicm_tpu_torch.ops.stencil_mxu import launch_plan as mxu_plan
+    from vbicm_tpu_torch.ops.stencil_mxu import pack_w_bands
+
+    model = build_fem_model(cooks_membrane_mesh(160, 80), device=dev, dense=False)
+    W = build_stencil_tables(model, 160, 80)
+    u = torch.as_tensor(rng.normal(size=(B, model.ndof)), dtype=torch.float32, device=dev)
+    c = torch.ones((B, 2), dtype=torch.float32, device=dev)
+    q = torch.empty_like(u)
+    for mode in ("bf16x3", "f32"):
+        tables = pack_w_bands(W, mode)
+        hi, lo = (t.to(dev) for t in tables) if mode == "bf16x3" else (tables.to(dev), None)
+        p = mxu_plan(B, 81, 161, mode)
+        report("mxu", "160x80", mode, p, lambda fn: fn(
+            hi.data_ptr(), hi.data_ptr() if lo is None else lo.data_ptr(), c.data_ptr(),
+            u.data_ptr(), q.data_ptr(), B, 81, 322, torch.cuda.current_stream().cuda_stream))
+        del tables, hi, lo
 
     op = StencilOperator(build_fem_model(cooks_membrane_mesh(160, 80), device=dev,
                                          dense=False), 160, 80)

@@ -46,6 +46,9 @@ _SIGNATURES = {
     # float32 table's entry point takes its one table as m_hi
     "vbicm_stencil_mxu_bf16x3": [_PTR] * 5 + [_INT] * 3 + [_PTR],
     "vbicm_stencil_mxu_f32": [_PTR] * 5 + [_INT] * 3 + [_PTR],
+    # (B, NY, NX2, out[3]) -> cudaError_t
+    "vbicm_stencil_mxu_plan_bf16x3": [_INT, _INT, _INT, _INTS],
+    "vbicm_stencil_mxu_plan_f32": [_INT, _INT, _INT, _INTS],
     # (a, b, out, B, NY, XLP, nfma, stream) -> cudaError_t
     "vbicm_fma_probe_f32": [_PTR] * 3 + [_INT] * 4 + [_PTR],
     "vbicm_fma_probe_f64": [_PTR] * 3 + [_INT] * 4 + [_PTR],

@@ -21,9 +21,11 @@ Precision modes, as the JAX package's:
   uses three TF32 products of a big/small split, 3xTF32).
 
 The table holds NY*T*416*256 entries (25.9 M at 160x80, 103.5 MB in either
-mode): densifying the 7-tap band costs about 19x the band's flops. On CPU
-tensors the wrapper runs the plain version; on CUDA tensors it launches the
-kernel (``csrc/stencil_mxu.cu``) or raises.
+mode), but only its band blocks are nonzero (:func:`band_ksteps`): the
+kernel multiplies and reads only those, in the densified product's order,
+so its output is bitwise the densified product's. On CPU tensors the
+wrapper runs the plain version; on CUDA tensors it launches the kernel
+(``csrc/stencil_mxu.cu``) or raises.
 """
 from __future__ import annotations
 
@@ -36,6 +38,8 @@ LPAD = 8  # leading zero lanes of the padded u row (>= the 3 halo lanes)
 WIN = 136  # source window of one u row: 128 lanes + 6 taps + 2 of padding
 KDIM = 3 * WIN + 8  # the three windows and 8 zeros: 416
 MODES = ("bf16x3", "f32")
+# rows of the kernel's k-steps: BF16 m16n8k16, TF32 m16n8k8 MMAs
+KSTEP = {"bf16x3": 16, "f32": 8}
 
 
 def n_tiles(NX: int) -> int:
@@ -85,6 +89,53 @@ def pack_w_bands(W, mode: str = "bf16x3"):
     hi = out.to(torch.bfloat16)
     lo = (out - hi.to(torch.float64)).to(torch.bfloat16)
     return hi, lo
+
+
+def band_ksteps(NX: int, t: int, n0: int, kstep: int):
+    """The band blocks of the 8-column n-tile at lanes ``t*128 + n0 ..
+    t*128 + n0 + 7`` (``n0`` a multiple of 8 below 128) in either column
+    half of a table M[y, t]: for each window dy, the aligned k-steps of
+    ``kstep`` rows that hold its rows ``dy*WIN + n0 .. dy*WIN + kmax + 6``,
+    kmax = n0 + 7 or the n-tile's last lane inside the grid row of 2NX
+    lanes. Returns three tuples (dy = 0, 1, 2) of k-step indices into M's
+    KDIM rows, all empty for an n-tile past the grid. Every other (k-step,
+    n-tile) block of the table is zero; the kernel multiplies and reads only
+    these, by the same rule."""
+    if n0 % 8 or not 0 <= n0 < 128 or kstep not in KSTEP.values():
+        raise ValueError(f"band_ksteps: n0={n0}, kstep={kstep}")
+    rem = 2 * NX - (t * 128 + n0)
+    if rem <= 0:
+        return (), (), ()
+    kmax = n0 + min(7, rem - 1)
+    return tuple(tuple(range((dy * WIN + n0) // kstep, (dy * WIN + kmax + 6) // kstep + 1))
+                 for dy in range(3))
+
+
+def band_table_bytes(NY: int, NX: int, mode: str, sector: int = 32) -> int:
+    """Bytes of the tables' band blocks (:func:`band_ksteps`, both column
+    halves, both bfloat16 tables in ``"bf16x3"``), counted in whole
+    ``sector``-byte pieces of the table's rows, as device memory moves
+    them."""
+    step, itemsize = KSTEP[mode], (2 if mode == "bf16x3" else 4)
+    pieces = 0
+    for t in range(n_tiles(NX)):
+        rows = set()
+        for n0 in range(0, 128, 8):
+            first, last = n0 * itemsize // sector, ((n0 + 8) * itemsize - 1) // sector
+            for ks in sum(band_ksteps(NX, t, n0, step), ()):
+                for r in range(ks * step, (ks + 1) * step):
+                    rows.update((r, c) for c in range(first, last + 1))
+        pieces += len(rows)
+    return NY * 2 * (2 if mode == "bf16x3" else 1) * pieces * sector
+
+
+def band_flops(B: int, NY: int, NX: int, mode: str) -> float:
+    """The kernel's MMA flops: three products of (B, kstep) by (kstep, 8) on
+    every band block of both column halves."""
+    step = KSTEP[mode]
+    blocks = sum(len(sum(band_ksteps(NX, t, n0, step), ()))
+                 for t in range(n_tiles(NX)) for n0 in range(0, 128, 8))
+    return 3 * 2.0 * B * step * 8 * 2 * blocks * NY
 
 
 def band_windows(u, NY: int, NX: int):
@@ -186,3 +237,18 @@ def stencil_affine_matvec_mxu(m_bands, coeffs, u, NY: int, NX: int, mode: str = 
 
 
 stencil_affine_matvec_mxu.launches = 0
+
+
+def launch_plan(B: int, NY: int, NX: int, mode: str = "bf16x3"):
+    """The launch the kernel makes at (B, NY, NX) on the current CUDA
+    device, as its C plan entry point reports it: (sample-tile groups, blocks
+    an SM holds, the device's SMs). Builds the kernels on first use; needs a
+    GPU."""
+    if mode not in MODES:
+        raise ValueError(f"unknown mode {mode!r}")
+    lib, _, _ = _build.load_library()
+    fn = lib.vbicm_stencil_mxu_plan_bf16x3 if mode == "bf16x3" else lib.vbicm_stencil_mxu_plan_f32
+    plan = _build.kernel_fit(fn, 3, B, NY, 2 * NX)
+    if plan is None:
+        raise ValueError(f"stencil_mxu kernel takes no launch at B={B}, NY={NY}, NX={NX}")
+    return plan
