@@ -1,7 +1,7 @@
 """On-card smoke test of the PyTorch port (``vbicm_tpu_torch``) on one GPU.
 
 Builds the CUDA kernels from the sources in this checkout and holds each
-against its plain PyTorch version. Then four paths, each driven through the
+against its plain PyTorch version. Then six paths, each driven through the
 entry points a user calls, with the kernels' launch counts set to 0 just
 before and read just after:
 
@@ -37,7 +37,21 @@ before and read just after:
   launch plan's rows, the banded tensor-core stencil in both precision
   modes against its plain version and the float64 stencil, the FMA-ceiling
   probe against its plain version, and
-  examples/stencil_kernel_study_torch.py's main at 160x80, B = 256.
+  examples/stencil_kernel_study_torch.py's main at 160x80, B = 256;
+- the evaluation layer (phases 28-34), each phase with its own launch
+  counts and wall time: the spectral and 3-D stencil kernels against their
+  plain versions at the path's shapes (and timed); on Cook's 20x10 in
+  float64 the log-posterior, its gradient and its Hessian (the spectral
+  solve's double backward) at 256 thetas against the CPU run, a
+  Metropolis reference chain (8 chains x 2000 steps; R-hat, ESS, and at
+  most SAMPLER_SYNCS synchronizing CUDA calls in the run), HMC through the
+  adjoint against Metropolis, the paper's accuracy check (the VI posterior
+  trained with per-sample pairing, n = 1024, 120 + 100 epochs, against the
+  chain, with tests/test_statistical.py's gates, and KLD(MCMC || VI)),
+  Laplace against its CPU run, and the comparison pipeline (KLD maps and
+  mean/variance fields on a 4x4 y-grid); then per-observation refinement
+  through the 3-D trainer's 32x8x8 solver (150 steps, cut from the
+  example's 1500).
 
 Phase 1 fails if a spectral, stencil, quad4 element or banded kernel spills
 registers; phases 2, 8, 13, 18 and 25 hold two calls of a kernel bitwise
@@ -134,6 +148,18 @@ MXU_TOL_EXACT = {"f32": 5e-6, "bf16x3": 5e-5}
 # kernel #6's batches: the stencil kernel's, and 64 and 128, one and two
 # whole tiles of its 64 samples
 MXU_BATCHES = [1, 5, 64, 128, 256, 300]
+# the evaluation path's shapes (phase 28): the spectral kernel at 20x10 in
+# float64 for Laplace (B = 1), HMC (4 chains), Metropolis (8), a training
+# batch (64 x 8 seeds), the posterior predictive (2000) and the comparison's
+# pushes (16 y x 200); the 32x8x8 refinement's (16 samples) coarse solve and
+# 3-D stencil
+EVAL_SHAPES = [(1, 440), (4, 440), (8, 440), (512, 440), (2000, 440), (3200, 440)]
+EVAL_TIMED = [(8, 440), (512, 440)]
+REFINE_COARSE_SHAPE = (16, 1200)
+REFINE_BATCH = 16
+# synchronizing CUDA calls a sampler run may make (its draws' copies in and
+# its result's copies out), against the thousands of steps in its loop
+SAMPLER_SYNCS = 20
 
 
 def fail(msg):
@@ -336,6 +362,21 @@ def kernel_times(kernel, plain, bound, reps=100, plain_reps=5):
     return {"ms": ms, "plain_ms": min(dev["plain"], dev["plain2"]),
             "ms_eager": time_ms(kernel, warmup=reps // 10, reps=reps),
             "bound_ms": bound[0], "bound_by": bound[1], "share_of_bound": bound[0] / ms}
+
+
+def host_syncs(fn):
+    """(fn(), the synchronizing CUDA calls made while it ran), counted by
+    PyTorch's sync debug mode, which warns at each one."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            result = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return result, sum("synchroniz" in str(w.message) for w in caught)
 
 
 def wall_s(fn, reps, warmup=1):
@@ -556,6 +597,7 @@ def main():
     box = box3d_path(dev, card)
     elem = element_path(dev, card)
     study = study_path(dev, card)
+    evals = eval_path(dev, card, box)
 
     times[BOX_COARSE_SHAPE, torch.float32] = box["spectral_ms"][torch.float32]
     times[BOX_COARSE_SHAPE, torch.float64] = box["spectral_ms"][torch.float64]
@@ -579,15 +621,20 @@ def main():
         "source": "vbicm_tpu_torch/csrc/spectral_apply.cu",
         "replaces": "vbicm_tpu/ops/spectral_pallas.py:56",
         "launches": (launches + scaled["spectral_launches"] + box["spectral_launches"]
-                     + elem["spectral_launches"]),
+                     + elem["spectral_launches"] + evals["eval_20x10"]
+                     + evals["refine_32x8x8"][0]),
         "launches_by_path": {"cooks_20x10": launches,
                              "scaled_160x80": scaled["spectral_launches"],
                              "box3d_32x8x8": box["spectral_launches"],
-                             "rom_160x80": elem["spectral_launches"]},
+                             "rom_160x80": elem["spectral_launches"],
+                             "eval_20x10": evals["eval_20x10"],
+                             "refine_32x8x8": evals["refine_32x8x8"][0]},
         "max_abs_err": main_abs_err,
         **{k: spectral[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
         "library_ms": None,  # no one PyTorch call computes V diag(1/d) V^T b per sample
         "tc_bound_ms": spectral["tc_bound_ms"],  # 3xTF32 on tf32_tc (f64: DMMA on fp64_tc)
+        **{f"{k}_f64_{B}x{n}": evals["spectral_ms"][B, n]["device"][i]
+           for B, n in EVAL_TIMED for i, k in enumerate(("ms", "plain_ms"))},
         **{k: v for k, v in spectral.items()
            if k not in ("ms", "plain_ms", "bound_ms", "bound_by", "tc_bound_ms")},
     }, {
@@ -605,12 +652,15 @@ def main():
         "route": "cuda",
         "source": "vbicm_tpu_torch/csrc/stencil3d_affine.cu",
         "replaces": "vbicm_tpu/ops/stencil3d_pallas.py:63",
-        "launches": box["stencil3d_launches"],
-        "launches_by_path": {"box3d_32x8x8": box["stencil3d_launches"]},
+        "launches": box["stencil3d_launches"] + evals["refine_32x8x8"][1],
+        "launches_by_path": {"box3d_32x8x8": box["stencil3d_launches"],
+                             "refine_32x8x8": evals["refine_32x8x8"][1]},
         "max_abs_err": box["stencil3d_abs_err"],
         **stencil_fields({dt: box["stencil3d_ms"][(32, 8, 8), dt] for dt in (f32, f64)}),
         **stencil_fields({dt: box["stencil3d_ms"][(64, 16, 16), dt] for dt in (f32, f64)},
                          "_64x16x16"),
+        **{f"{k}_b{REFINE_BATCH}": evals["stencil3d_ms"][k]
+           for k in ("ms", "plain_ms", "ms_eager", "bound_ms", "bound_by")},
     }, {
         "name": "element_affine_matvec_kernel",
         "route": "cuda",
@@ -1559,6 +1609,7 @@ def box3d_path(dev, card):
     torch.cuda.synchronize()
     out["spectral_launches"] = spectral_apply_batched.launches
     out["stencil3d_launches"] = stencil3d_affine_matvec.launches
+    out["trained"] = (cfg, fh, trainer, res, ds)  # for the refinement of eval_path
     preds = trainer.predict(res.theta_net, res.z_net, ds.y_data[:8])
     losses = np.concatenate([res.hist_step1, res.hist_step2])
     if not np.all(np.isfinite(losses)):
@@ -1626,6 +1677,290 @@ def box3d_path(dev, card):
               f"refinements): {B / dt:.1f} solves/s ({dt * 1e3:.1f} ms a batch); CG iterations "
               f"per solve (first CG, refinement CGs) mean {its.mean(1).tolist()}, max "
               f"{its.max(1).values.tolist()}{share}, on {card}", flush=True)
+    return out
+
+
+def eval_path(dev, card, box):
+    """Phases 28-34: the evaluation layer. On Cook's 20x10 in float64 (the
+    spectral kernel): the log-posterior with its gradient and Hessian against
+    the plain version, a Metropolis reference chain, HMC against Metropolis,
+    the paper's accuracy check of the trained VI posterior against the chain,
+    Laplace against its CPU run, and the comparison pipeline; then
+    per-observation refinement through the 3-D trainer's solver at 32x8x8
+    (the 3-D stencil and spectral kernels). ``box`` is box3d_path's result
+    (its trained 32x8x8 model). Returns the launch counts by path."""
+    from vbicm_tpu_torch.config import ProblemConfig, TrainConfig
+    from vbicm_tpu_torch.eval import comparison as cmp
+    from vbicm_tpu_torch.eval.laplace import laplace_posterior
+    from vbicm_tpu_torch.eval.mcmc import (
+        hmc,
+        make_fem_logpost,
+        metropolis,
+        posterior_predictive_z,
+    )
+    from vbicm_tpu_torch.eval.postprocess import kld_gaussian_kde, lognormal_pdf_2d
+    from vbicm_tpu_torch.mesh import cooks_membrane_mesh
+    from vbicm_tpu_torch.model import build_fem_model
+    from vbicm_tpu_torch.ops.spectral_kernel import spectral_apply_batched
+    from vbicm_tpu_torch.ops.stencil3d_kernel import stencil3d_affine_matvec
+    from vbicm_tpu_torch.prob.datagen import generate_data_fem
+    from vbicm_tpu_torch.solver import make_fh_fun
+    from vbicm_tpu_torch.vi.refine import refine_posterior
+    from vbicm_tpu_torch.vi.train import TwoStepTrainer
+
+    from vbicm_tpu_torch.config import SectionCard
+    from vbicm_tpu_torch.mesh import beam_hex8_mesh
+    from vbicm_tpu_torch.ops.spectral_kernel import spectral_apply_reference
+    from vbicm_tpu_torch.ops.stencil3d import StencilOperator3d
+    from vbicm_tpu_torch.ops.stencil3d_kernel import stencil3d_affine_reference
+
+    def phase_start():
+        torch.cuda.synchronize()
+        spectral_apply_batched.launches = 0
+        stencil3d_affine_matvec.launches = 0
+        return time.perf_counter()
+
+    def phase_end(t0):
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, spectral_apply_batched.launches
+
+    cfg = ProblemConfig()
+    model = build_fem_model(cooks_membrane_mesh(20, 10), device=dev, dtype=torch.float64)
+    fh = make_fh_fun(model, cfg)  # float64 apply, as the reference's MCMC
+    cpu_fh = make_fh_fun(build_fem_model(cooks_membrane_mesh(20, 10), device="cpu",
+                                         dtype=torch.float64), cfg)
+    out = {"eval_20x10": 0}
+
+    # 28. the kernels at the evaluation path's shapes against their plain
+    #     versions, two calls bitwise equal (launch counts restored), and
+    #     timed where the path spends its launches
+    saved = spectral_apply_batched.launches, stencil3d_affine_matvec.launches
+    checks = [(shape, torch.float64, REL_TOL[torch.float64]) for shape in EVAL_SHAPES]
+    checks += [(REFINE_COARSE_SHAPE, dt, REL_TOL[dt]) for dt in (torch.float32, torch.float64)]
+    worst = 0.0
+    for (B, n), dtype, tol in checks:
+        V, g, c, b = pencil_problem(B, n, seed=B + n + 28, dtype=dtype, device=dev)
+        x, x2 = spectral_apply_batched(V, g, c, b), spectral_apply_batched(V, g, c, b)
+        err = rel_err(x, spectral_apply_reference(V, g, c, b))
+        if not (err <= tol and torch.equal(x, x2)):
+            fail(f"spectral kernel at the evaluation shape {(B, n)} {dtype}: rel err {err} "
+                 f"(tol {tol}), two calls equal {torch.equal(x, x2)}")
+        worst = max(worst, err / tol)
+    m3 = build_fem_model(beam_hex8_mesh(32, 8, 8), SectionCard(stype=4), device=dev, dense=False)
+    op3 = StencilOperator3d(m3, 32, 8, 8)
+    rng = np.random.default_rng(34)
+    u64 = torch.as_tensor(rng.normal(size=(REFINE_BATCH, m3.ndof)), device=dev)
+    c64 = torch.as_tensor(rng.uniform(1.0, 3.0, (REFINE_BATCH, 2)), device=dev)
+    for dtype in (torch.float32, torch.float64):
+        u, c = u64.to(dtype), c64.to(dtype)
+        q, q2 = op3.affine(c, u), op3.affine(c, u)
+        err = rel_err(q, stencil3d_affine_reference(op3.W.to(dev, dtype), c, u))
+        if not (err <= REL_TOL[dtype] and torch.equal(q, q2)):
+            fail(f"3-D stencil kernel at 32x8x8, B={REFINE_BATCH} {dtype}: rel err {err}, two "
+                 f"calls equal {torch.equal(q, q2)}")
+    out["spectral_ms"] = {shape: spectral_times(shape, torch.float64, dev, card, 28, 100)
+                          for shape in EVAL_TIMED}
+    u, c, W = u64.float(), c64.float(), op3.W.to(dev, torch.float32)
+    out["stencil3d_ms"] = kernel_times(lambda: op3.affine(c, u),
+                                       lambda: stencil3d_affine_reference(W, c, u),
+                                       stencil_least_time(op3.planes[torch.float32], c, u))
+    spectral_apply_batched.launches, stencil3d_affine_matvec.launches = saved
+    t3 = out["stencil3d_ms"]
+    print(f"[28 kernels] ok: spectral kernel vs plain at {EVAL_SHAPES} f64 and "
+          f"{REFINE_COARSE_SHAPE} f32, f64 (worst {worst:.3f} of its tolerance), 3-D stencil at "
+          f"32x8x8 B={REFINE_BATCH} f32, f64, two calls bitwise equal; 3-D stencil (B="
+          f"{REFINE_BATCH}, 32x8x8) f32 device kernel {t3['ms']:.4f} ms, plain "
+          f"{t3['plain_ms']:.4f} ms, bound {t3['bound_ms']:.4f} ms ({t3['bound_by']}) on {card}",
+          flush=True)
+
+    # 28. the log-posterior, its gradient and its Hessian (the spectral
+    #     solve's double backward) at 256 thetas, card against CPU; the
+    #     observation is one of a dataset generated on the card (the
+    #     statistical test's: n = 1024, 8 seeds an observation)
+    t0 = phase_start()
+    ds = generate_data_fem(torch.Generator().manual_seed(7), fh, n_sam=1024, ne_sam=8,
+                           device=dev, sig_e=cfg.sig_e, sig_eta=cfg.sig_eta, chunk=4096)
+    y_obs = ds.y_data[3]
+    th = np.random.default_rng(28).normal(size=(256, 2))
+    derivs = {}
+    for where, f in ((dev, fh), ("cpu", cpu_fh)):
+        lp = make_fem_logpost(f, y_obs, cfg.sig_e)
+        q = torch.tensor(th, device=where, requires_grad=True)
+        val = lp(q)
+        (g,) = torch.autograd.grad(val.sum(), q, create_graph=True)
+        H = torch.stack([torch.autograd.grad(g[:, i].sum(), q, retain_graph=True)[0]
+                         for i in range(2)], dim=1)
+        derivs[str(where)] = [t.detach().cpu() for t in (val, g, H)]
+    errs = [rel_err(a, b) for a, b in zip(derivs[str(dev)], derivs["cpu"])]
+    dt, n1 = phase_end(t0)
+    out["eval_20x10"] += n1
+    if not (errs[0] <= 1e-10 and errs[1] <= 1e-10 and errs[2] <= 1e-8) or n1 <= 0:
+        fail(f"log-posterior on the card vs CPU: rel err value {errs[0]}, grad {errs[1]} "
+             f"(tol 1e-10), Hessian {errs[2]} (tol 1e-8); spectral launches {n1}")
+    print(f"[28 logpost] ok: Cook's 20x10 f64, 256 thetas, card vs CPU rel err value "
+          f"{errs[0]:.3e}, grad {errs[1]:.3e} (tol 1e-10), Hessian {errs[2]:.3e} (tol 1e-8); "
+          f"spectral launches {n1}; {dt:.2f} s (1024-point dataset included)", flush=True)
+
+    # 29. the Metropolis reference chain at the statistical test's size
+    t0 = phase_start()
+    logpost = make_fem_logpost(fh, y_obs, cfg.sig_e)
+    mc, syncs = host_syncs(lambda: metropolis(torch.Generator().manual_seed(9), logpost, d=2,
+                                              n_samples=1500, burn=500, n_chains=8,
+                                              step_size=0.6, device=dev))
+    dt, n1 = phase_end(t0)
+    out["eval_20x10"] += n1
+    if not (np.all(mc.rhat < 1.05) and np.all(mc.ess > 200)) or n1 <= 0 or syncs > SAMPLER_SYNCS:
+        fail(f"Metropolis: R-hat {mc.rhat} (< 1.05), ESS {mc.ess} (> 200), spectral launches "
+             f"{n1}, synchronizing calls {syncs} (<= {SAMPLER_SYNCS})")
+    s = mc.samples.reshape(-1, 2)
+    print(f"[29 metropolis] ok: 8 chains x (500 + 1500) steps, accept {mc.accept_rate:.3f}, "
+          f"R-hat {mc.rhat.tolist()} (< 1.05), ESS {mc.ess.tolist()} (> 200), posterior mean "
+          f"{s.mean(axis=0).tolist()}; spectral launches {n1}; {syncs} synchronizing calls "
+          f"(<= {SAMPLER_SYNCS}); {2000 / dt:.1f} steps/s ({dt:.2f} s) on {card}", flush=True)
+
+    # 30. HMC through the adjoint against Metropolis (tests/test_eval.py)
+    t0 = phase_start()
+    with torch.no_grad():
+        y_clean, _ = fh(torch.tensor([[0.8, 0.2]], dtype=torch.float64, device=dev))
+    lp_c = make_fem_logpost(fh, y_clean[0], 1e-2)
+    h, syncs = host_syncs(lambda: hmc(torch.Generator().manual_seed(3), lp_c, d=2,
+                                      n_samples=400, burn=200, n_chains=4, step_size=0.3,
+                                      n_leapfrog=6, device=dev))
+    dt_h, n_h = phase_end(t0)
+    t0 = phase_start()
+    m = metropolis(torch.Generator().manual_seed(4), lp_c, d=2, n_samples=800, burn=300,
+                   n_chains=4, step_size=0.3, device=dev)
+    dt_m, n_m = phase_end(t0)
+    out["eval_20x10"] += n_h + n_m
+    hs, ms = h.samples.reshape(-1, 2), m.samples.reshape(-1, 2)
+    tol = 5 * (h.mean_mcse() + m.mean_mcse())
+    diff = abs(hs[:, 0].mean() - ms[:, 0].mean())
+    ratio = hs[:, 0].std() / ms[:, 0].std()
+    if not (h.accept_rate > 0.4 and diff < max(tol[0], 0.15) and 0.5 < ratio < 2.0
+            and syncs <= SAMPLER_SYNCS):
+        fail(f"HMC vs Metropolis: accept {h.accept_rate} (> 0.4), |mean theta_1 diff| {diff} "
+             f"(< {max(tol[0], 0.15)}), std ratio {ratio} (0.5, 2), synchronizing calls "
+             f"{syncs} (<= {SAMPLER_SYNCS})")
+    grads = 600 * 6 + 1  # batched gradient evaluations: L a step and the start's
+    print(f"[30 hmc] ok: 4 chains x (200 + 400) steps, L = 6: accept {h.accept_rate:.3f} "
+          f"(> 0.4), |mean theta_1 - Metropolis's| {diff:.4f} (< {max(tol[0], 0.15):.4f}), std "
+          f"ratio {ratio:.3f} (0.5, 2), {syncs} synchronizing calls (<= {SAMPLER_SYNCS}); "
+          f"{grads / dt_h:.1f} gradient evaluations/s of 4 chains "
+          f"({4 * grads / dt_h:.1f} chain gradients/s, {dt_h:.2f} s), Metropolis 4 x 1100 steps "
+          f"{1100 / dt_m:.1f} steps/s; spectral launches {n_h} + {n_m}; on {card}", flush=True)
+
+    # 31. the paper's accuracy check: the VI posterior trained with
+    #     per-sample pairing against the chain of phase 29, and the step-2
+    #     predictive against the MCMC posterior predictive, with
+    #     tests/test_statistical.py's gates
+    t0 = phase_start()
+    tcfg = TrainConfig(batch_size=64, num_epoch1=120, num_epoch2=100, pairing="per_sample")
+    trainer = TwoStepTrainer(model, cfg, tcfg, fh_batch=fh)
+    res = trainer.fit(ds.y_data, ds.e_data, torch.Generator().manual_seed(8))
+    dt_train, n1 = phase_end(t0)
+    out["eval_20x10"] += n1
+    tm, tsig, zm_all, _ = (t.cpu().numpy() for t in trainer.predict(res.theta_net, res.z_net,
+                                                                     ds.y_data))
+    tm, tsig = tm[3], tsig[3]
+    mcse = mc.mean_mcse()
+    std_ratio = np.sqrt(tsig[0]) / s[:, 0].std()
+    rmse_m = float(np.sqrt(np.mean((zm_all - res.logz_mean_post) ** 2)))
+    med = float(np.median(np.exp(zm_all) / ds.z_data))
+    t0 = phase_start()
+    z_mc = posterior_predictive_z(torch.Generator().manual_seed(11), fh, s[:2000], cfg.sig_eta,
+                                  device=dev)
+    _, n1 = phase_end(t0)
+    out["eval_20x10"] += n1
+    logz_gap = np.abs(zm_all[3] - np.log(z_mc).mean(axis=0))
+    _, _, zm3, zs3 = (t[0].cpu().numpy() for t in trainer.predict(res.theta_net, res.z_net,
+                                                                   ds.y_data[3:4]))
+    kld = kld_gaussian_kde(z_mc, lambda p: lognormal_pdf_2d(p, zm3, zs3))
+    gates = {
+        "theta_1 mean": (abs(tm[0] - s[:, 0].mean()), 0.15 + 5 * mcse[0]),
+        "theta_2 mean": (abs(tm[1] - s[:, 1].mean()), 0.4 + 5 * mcse[1]),
+        "step-2 log z mean rmse": (rmse_m, 0.08),
+        "predictive log z vs MCMC": (float(logz_gap.max()), 0.25),
+    }
+    bands = {"theta_2 std": (np.sqrt(tsig[1]), 0.6, 1.4), "theta_1 std ratio":
+             (std_ratio, 0.5, 1.6), "median exp(z_mean) / z": (med, 0.5, 2.0)}
+    bad = [k for k, (v, b) in gates.items() if not v < b]
+    bad += [k for k, (v, lo, hi) in bands.items() if not lo < v < hi]
+    line = "; ".join([f"{k} {v:.4f} (< {b:.4f})" for k, (v, b) in gates.items()]
+                     + [f"{k} {v:.4f} ({lo}, {hi})" for k, (v, lo, hi) in bands.items()])
+    if bad:
+        fail(f"VI vs MCMC (tests/test_statistical.py's gates): {bad} failed: {line}")
+    print(f"[31 vi vs mcmc] ok: n = 1024, ne = 8, 120 + 100 epochs at B = 64, f64, per-sample "
+          f"pairing, trained in {dt_train:.2f} s; VI theta {tm.tolist()} std "
+          f"{np.sqrt(tsig).tolist()}, MCMC mean {s.mean(axis=0).tolist()} std "
+          f"{s.std(axis=0).tolist()}; {line}; KLD(MCMC || VI) {kld:.4f}; on {card}", flush=True)
+
+    # 32. Laplace at phase 29's observation, card against CPU
+    t0 = phase_start()
+    lap = laplace_posterior(logpost, torch.zeros(2, dtype=torch.float64, device=dev), tol=1e-7)
+    dt, n1 = phase_end(t0)
+    out["eval_20x10"] += n1
+    lap_cpu = laplace_posterior(make_fem_logpost(cpu_fh, y_obs, cfg.sig_e),
+                                torch.zeros(2, dtype=torch.float64), tol=1e-7)
+    mode_err = float(np.abs(lap.theta_map - lap_cpu.theta_map).max())
+    cov_err = float(np.abs(lap.cov - lap_cpu.cov).max())
+    if not (lap.converged and mode_err <= 1e-6 and cov_err <= 1e-6) or n1 <= 0:
+        fail(f"Laplace: converged {lap.converged} (|grad| {lap.grad_norm}), card vs CPU mode "
+             f"{mode_err}, cov {cov_err} (tol 1e-6), spectral launches {n1}")
+    print(f"[32 laplace] ok: mode {lap.theta_map.tolist()}, |grad| {lap.grad_norm:.2e} "
+          f"(tol 1e-7), Hessian positive definite, cov {lap.cov.tolist()}; card vs CPU mode "
+          f"{mode_err:.2e}, cov {cov_err:.2e} (tol 1e-6); spectral launches {n1}; {dt:.2f} s",
+          flush=True)
+
+    # 33. the comparison pipeline with phase 31's nets on a 4x4 y-grid
+    t0 = phase_start()
+    yg = cmp.y_grid(ds.y_mean, ds.y_std**2, 2.0, 4)[0]
+    tm_g, tsg_g, zm_g, zs_g = trainer.predict(res.theta_net, res.z_net, yg)
+    batch_h = lambda thetas: fh(thetas)[1]  # noqa: E731
+    gen = torch.Generator().manual_seed(33)
+    kld_p, kld_c = cmp.kld_maps(gen, batch_h, yg, (tm_g, tsg_g, zm_g, zs_g), (tm_g, tsg_g),
+                                cfg.sig_eta, 200)
+    fields = cmp.mean_sig_fields(gen, batch_h, (tm_g, tsg_g, zm_g, zs_g), (tm_g, tsg_g),
+                                 cfg.sig_eta, 200,
+                                 proposed_sampler=trainer.theta_sampler(res.theta_net, yg))
+    rel = cmp.relative_error_fields(fields)
+    dt, n1 = phase_end(t0)
+    out["eval_20x10"] += n1
+    arrays = [kld_p, kld_c, *(a for v in fields.values() for a in v),
+              *(a for v in rel.values() for a in v)]
+    if not (kld_p.shape == kld_c.shape == (16,)
+            and all(a.shape[0] == 16 and np.isfinite(a).all() for a in arrays)) or n1 <= 0:
+        fail(f"comparison pipeline: shapes {[a.shape for a in arrays]}, finite "
+             f"{[bool(np.isfinite(a).all()) for a in arrays]}, spectral launches {n1}")
+    print(f"[33 comparison] ok: 4x4 y-grid, 200 samples a y: KLD proposed mean "
+          f"{kld_p.mean():.4f}, classical {kld_c.mean():.4f}; mean-field rel err proposed "
+          f"{rel['proposed'][0].mean():.4f}, classical {rel['classical'][0].mean():.4f}; finite, "
+          f"(16,) and (16, 2); spectral launches {n1}; {dt:.2f} s", flush=True)
+
+    # 34. refinement on the 3-D box through the trainer's f32 + 1 refinement
+    #     solver: one observation, ne = 16 (full width), 150 steps (cut from
+    #     the example's 1500), from box3d_path's amortized posterior
+    cfg3, fh3, trainer3, res3, ds3 = box["trained"]
+    tm3, tsg3, _, _ = trainer3.predict(res3.theta_net, res3.z_net, ds3.y_data[:1])
+    steps = 150
+    t0 = phase_start()
+    mu, L, losses = refine_posterior(lambda thetas: fh3(thetas)[0], ds3.y_data[0], cfg3.sig_e,
+                                     tm3[0], torch.diag(torch.sqrt(tsg3[0])),
+                                     generator=torch.Generator().manual_seed(200), steps=steps,
+                                     ne=16, lr=1e-2, chunk_steps=50)
+    dt, n1 = phase_end(t0)
+    n4 = stencil3d_affine_matvec.launches
+    out["refine_32x8x8"] = (n1, n4)
+    losses = losses.cpu().numpy()
+    first, last = losses[:20].mean(), losses[-20:].mean()
+    ok = np.isfinite(losses).all() and bool(torch.isfinite(mu).all() and torch.isfinite(L).all())
+    if not (ok and last < first and n1 > 0 and n4 > 0):
+        fail(f"3-D refinement: finite {ok}, mean loss first 20 {first}, last 20 {last}, launches "
+             f"spectral {n1}, stencil3d {n4}")
+    print(f"[34 refine] ok: 32x8x8, one observation, ne = 16, {steps} steps (cut from 1500): "
+          f"mean loss first 20 {first:.4f} > last 20 {last:.4f}; amortized "
+          f"{tm3[0].tolist()} -> refined {mu.tolist()} (true {ds3.theta_data[0].tolist()}); "
+          f"launches stencil3d {n4}, spectral {n1}; {1e3 * dt / steps:.2f} ms a step "
+          f"({dt:.2f} s) on {card}", flush=True)
     return out
 
 

@@ -15,12 +15,14 @@ force (0, 0, -0.02), coarse 16x4x4, 2,000-point dataset, 10 + 10 epochs.
 y = the 3 displacements of the tip-corner node; z = von Mises at two
 quadrature points of a root element, top fiber. After training, the training
 solver is cross-checked against a tight solver (two refinements, tol 1e-6)
-on 16 thetas.
+on 16 thetas. Then the posterior probe: per-observation refinement
+(``vi.refine.refine_posterior``, full covariance, 16 samples a step, lr
+1e-2) from the amortized posterior of the first 4 observations, through the
+training solver; ``--refine-steps`` (default 1500) cuts its depth.
 
 Left out against the JAX example: ``--resume``, the dataset cache and
-checkpoints (ROADMAP Queue 1 item 2), and the per-observation
-``refine_posterior`` validation (Queue 1 item 3). Writes the loss histories
-and a summary to ``--results``.
+checkpoints (ROADMAP Queue 1 item 2). Writes the loss histories and a
+summary to ``--results``.
 
     python examples/train_scaled_3d_torch.py --device cuda --n-data 256 --epochs1 2 --epochs2 2
 """
@@ -48,6 +50,7 @@ def main():
     ap.add_argument("--epochs2", type=int, default=10)
     ap.add_argument("--results", type=str, default="results_scaled_3d_torch")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--refine-steps", type=int, default=1500)
     ap.add_argument("--device", type=str, default="cuda")
     args = ap.parse_args()
 
@@ -58,6 +61,7 @@ def main():
     from vbicm_tpu_torch.model import build_fem_model
     from vbicm_tpu_torch.prob.datagen import generate_data_fem
     from vbicm_tpu_torch.solver import make_fh_fun, make_two_level_solver_box3d
+    from vbicm_tpu_torch.vi.refine import refine_posterior
     from vbicm_tpu_torch.vi.train import TwoStepTrainer
 
     device = torch.device(args.device)
@@ -141,9 +145,52 @@ def main():
     print(f"train-solver vs tight-solver probe rel err: y {y_err:.2e}, h {h_err:.2e}")
     summary.update(probe_rel_err_y=y_err, probe_rel_err_h=h_err)
 
+    # the training metrics are written before the validation
     os.makedirs(args.results, exist_ok=True)
     np.savez(os.path.join(args.results, "train_hist.npz"),
              train_loss_step1=res.hist_step1, train_loss_step2=res.hist_step2)
+    with open(os.path.join(args.results, "summary.json"), "w") as f:
+        json.dump(summary, f, indent=1)
+
+    # posterior probe: refinement (the exact posterior up to its tolerance)
+    # from the amortized posterior of held-in observations; the amortized
+    # mean should sit within about a posterior std of the refined one. It
+    # refines through the training solver, whose adjoint training ran and
+    # which the probe above holds to the tight solver. y_norm standardizes
+    # only the nets' inputs: the likelihood lives in raw y units.
+    validations = []
+    for i in range(4):
+        y_obs = ds.y_data[i]
+        tm, tsg, _, _ = trainer.predict(res.theta_net, res.z_net, y_obs[None])
+        t0 = time.time()
+        mu, L, losses = refine_posterior(
+            lambda th: fh(th)[0], y_obs, cfg.sig_e, tm[0], torch.diag(torch.sqrt(tsg[0])),
+            generator=torch.Generator().manual_seed(200 + i), steps=args.refine_steps, ne=16,
+            lr=1e-2, chunk_steps=150)
+        refine_s = time.time() - t0
+        tm, std_a = tm[0].cpu().numpy(), np.sqrt(tsg[0].cpu().numpy())
+        mu = mu.cpu().numpy()
+        std_r = np.sqrt(np.diag((L @ L.T).cpu().numpy()))
+        zgap = np.abs(tm - mu) / std_r
+        th_true = ds.theta_data[i]
+        validations.append({
+            "amortized_mean": tm.tolist(),
+            "amortized_std": std_a.tolist(),
+            "refined_mean": mu.tolist(),
+            "refined_std": std_r.tolist(),
+            "zgap_amortized": zgap.tolist(),
+            # the refined mean within ~2 refined stds of the latent truth
+            # says the refinement converged, and any zgap_amortized left is
+            # amortization or underfit error
+            "true_theta": th_true.tolist(),
+            "zgap_refined_to_truth": (np.abs(mu - th_true) / std_r).tolist(),
+            "loss_first_last": [float(losses[0]), float(losses[-1])],
+            "refine_s": refine_s,
+        })
+        print(f"obs {i}: amortized {tm} refined {mu} true {th_true} zgap {zgap} "
+              f"({args.refine_steps} steps in {refine_s:.1f}s)")
+    summary["validation_vs_refined"] = validations
+
     with open(os.path.join(args.results, "summary.json"), "w") as f:
         json.dump(summary, f, indent=1)
     print(f"summary -> {args.results}/summary.json")

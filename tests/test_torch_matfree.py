@@ -213,3 +213,18 @@ def test_fea_solution_with_solve_free_matches_jax(cooks20):
     for got, want in ((sol.u, jsol.u), (sol.stress, jsol.stress), (sol.strain, jsol.strain),
                       (sol.reactions, jsol.reactions)):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-8)
+
+
+def test_matrix_free_second_derivative_raises(cooks20):
+    """The matrix-free solve has first derivatives only: a backward pass that
+    builds a graph (create_graph=True, as a Hessian does) raises instead of
+    returning a second derivative without the solve's terms."""
+    model = cooks20[0]
+    solve = make_solver(model, cg_tol=1e-10)
+    lam, mu = (torch.tensor(v, requires_grad=True) for v in _lam_mu(2, 4))
+    J = solve(lam, mu).sum()
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+        torch.autograd.grad(J, (lam, mu), create_graph=True)
+    # the first derivatives themselves still run
+    g = torch.autograd.grad(solve(lam, mu).sum(), (lam, mu))
+    assert all(bool(torch.isfinite(t).all()) for t in g)

@@ -253,12 +253,16 @@ def test_solver_forward_and_vjp_match_jax(cooks_parts, mixed):
     assert _rel(cbar, cbar_j) < (1e-5 if mixed else 1e-10)
 
 
-def test_solver_gradcheck_small_pencil():
-    rng = np.random.default_rng(5)
-    M = rng.normal(size=(12, 12))
+def _small_pencil(seed, n=12):
+    rng = np.random.default_rng(seed)
+    M = rng.normal(size=(n, n))
     A = M @ M.T  # symmetric PSD
-    Bm = np.eye(12) + 0.1 * (M + M.T) @ (M + M.T).T / 12.0  # SPD
-    solve = make_spectral_affine_solver(torch.as_tensor(np.stack([A, Bm])))
+    Bm = np.eye(n) + 0.1 * (M + M.T) @ (M + M.T).T / n  # SPD
+    return rng, make_spectral_affine_solver(torch.as_tensor(np.stack([A, Bm])))
+
+
+def test_solver_gradcheck_small_pencil():
+    rng, solve = _small_pencil(5)
     coeffs = torch.tensor(rng.uniform(0.5, 2.0, (3, 2)), requires_grad=True)
     f = torch.tensor(rng.normal(size=(3, 12)), requires_grad=True)
     assert torch.autograd.gradcheck(solve, (coeffs, f))
@@ -303,3 +307,51 @@ def test_truncating_accumulation_needs_the_k_tile_flush():
         a = _gemm_3xtf32_truncating(b, V, flush) / d
         errs[flush] = _rel(_gemm_3xtf32_truncating(a, V.T.contiguous(), flush), x64)
     assert errs[8] < CHIP.REL_TOL[torch.float32] / 10 < errs[0] / 5
+
+
+def test_solver_gradgradcheck_small_pencil():
+    """Second derivatives through the solve: its backward pass under
+    create_graph is itself differentiable (finite differences of the
+    backward, float64)."""
+    rng, solve = _small_pencil(5)
+    coeffs = torch.tensor(rng.uniform(0.5, 2.0, (3, 2)), requires_grad=True)
+    f = torch.tensor(rng.normal(size=(3, 12)), requires_grad=True)
+    assert torch.autograd.gradgradcheck(solve, (coeffs, f))
+
+
+def test_solver_hessian_matches_autograd_through_plain_apply(cooks_parts):
+    """Cook's 20x10, float64: the Hessian of a probe functional in the
+    coefficients through the solve's double backward equals autograd's
+    through the plain apply (1e-10 relative)."""
+    solve = make_spectral_affine_solver(cooks_parts[1])
+    rng = np.random.default_rng(8)
+    c0 = torch.as_tensor(np.stack([rng.uniform(8.0, 16.0, 3), rng.uniform(6.0, 9.0, 3)], 1))
+    f = torch.as_tensor(rng.normal(size=(3, solve.V.shape[0])))
+    w = torch.as_tensor(rng.normal(size=(3, solve.V.shape[0])))
+    H = torch.autograd.functional.hessian(lambda c: (w * solve(c, f)).sum(), c0)
+    H_ref = torch.autograd.functional.hessian(
+        lambda c: (w * spectral_apply_reference(solve.V, solve.g, c, f)).sum(), c0)
+    assert H.shape == (3, 2, 3, 2)
+    assert _rel(H, H_ref) < 1e-10
+
+
+@pytest.mark.parametrize("mixed", [False, True], ids=["f64", "f32_apply_1_refinement"])
+def test_first_order_backward_is_the_eigen_coordinate_form_bitwise(cooks_parts, mixed):
+    """Without create_graph the backward pass is the eigen-coordinate
+    adjoint, bit for bit: w and the coefficient cotangent
+    -(sum g a b', sum a b') from the forward and adjoint coordinates."""
+    solve = make_spectral_affine_solver(cooks_parts[1],
+                                        apply_dtype=torch.float32 if mixed else None,
+                                        refine_iters=int(mixed))
+    rng = np.random.default_rng(9)
+    c = torch.tensor(np.stack([rng.uniform(8.0, 16.0, 4), rng.uniform(6.0, 9.0, 4)], 1),
+                     requires_grad=True)
+    f = torch.tensor(rng.normal(size=(4, solve.V.shape[0])), requires_grad=True)
+    xbar = torch.as_tensor(rng.normal(size=(4, solve.V.shape[0])))
+    cbar, fbar = torch.autograd.grad(solve(c, f), (c, f), xbar)
+    with torch.no_grad():
+        _, a = solve.coords_and_apply(c, f)
+        w, b = solve.coords_and_apply(c, xbar)
+        ab = a * b
+        want = -torch.stack([(solve.g * ab).sum(-1), ab.sum(-1)], dim=-1).to(c.dtype)
+    assert torch.equal(fbar, w) and torch.equal(cbar, want)

@@ -35,6 +35,7 @@ from vbicm_tpu_torch.ops.stencil_mxu import (
     band_ksteps,
     band_table_bytes,
     band_windows,
+    check_launch_rules,
     n_tiles,
     pack_w_bands,
     split_bf16,
@@ -279,3 +280,46 @@ def test_band_counts_bytes_and_flops_at_160x80():
         assert band_flops(256, NY, NX, mode) == 3 * 2.0 * 256 * step * 8 * blocks * NY
     assert band_table_bytes(NY, NX, "bf16x3") == 20_404_224
     assert band_table_bytes(NY, NX, "f32") == 10_077_696
+
+
+def _launch_case(mode, NY=5, NX=9, B=3):
+    """Aligned tables, coeffs and u for the launch-rule checks, on the CPU."""
+    rows = NY * n_tiles(NX) * KDIM
+    dt = torch.bfloat16 if mode == "bf16x3" else torch.float32
+    tables = tuple(torch.zeros((rows, 256), dtype=dt) for _ in range(2 if mode == "bf16x3" else 1))
+    return tables, torch.zeros((B, 2)), torch.zeros((B, NY * 2 * NX))
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("rule", ["u", "coeffs", "table", "grid"])
+def test_launch_rules_raise_naming_the_rule(mode, rule):
+    """The launcher refuses misaligned tables (16 bytes), coeffs and u (8
+    bytes) and grids past 65535 blocks with a CUDA error; the wrapper's
+    check raises a ValueError that names the rule first. Offset views of
+    CPU tensors stand in for the card's; the grid rule is checked with
+    NY * ceil(2NX / 32) arithmetic on a small case."""
+    tables, coeffs, u = _launch_case(mode)
+    NY, NX = 5, 9
+    check_launch_rules(tables, coeffs, u, NY, NX)  # the aligned case passes
+    if rule == "u":
+        u = torch.zeros(u.numel() + 1)[1:].view(u.shape)
+        match = "u must start on an 8-byte boundary"
+    elif rule == "coeffs":
+        coeffs = torch.zeros(coeffs.numel() + 1)[1:].view(coeffs.shape)
+        match = "coeffs must start on an 8-byte boundary"
+    elif rule == "table":
+        t = tables[-1]
+        # two values on: 4 bytes (bfloat16) or 8 (float32) past the boundary
+        shifted = torch.zeros(t.numel() + 2, dtype=t.dtype)[2:].view(t.shape)
+        tables = (*tables[:-1], shifted)
+        match = f"table {len(tables) - 1} must start on a 16-byte boundary"
+    else:
+        # 2NX = 2 * 1024 lanes: 64 slices a row, 1024 rows -> 65,536 blocks
+        NY, NX = 1024, 1024
+        match = "65536 blocks exceeds CUDA's 65535"
+    assert u.is_contiguous() and coeffs.is_contiguous() and all(t.is_contiguous() for t in tables)
+    with pytest.raises(ValueError, match=match):
+        check_launch_rules(tables, coeffs, u, NY, NX)
+    # one block fewer is within the limit
+    if rule == "grid":
+        check_launch_rules(*_launch_case(mode), 1023, 1024)

@@ -90,7 +90,8 @@ def test_fit_box3d_two_step_on_cpu():
                                          ("resample_e", True)])
 def test_trainer_rejects_unported_options(field, value):
     model = build_fem_model(cooks_membrane_mesh(4, 2), device="cpu")
-    with pytest.raises(NotImplementedError):
+    item = {"ckpt_every": 2}.get(field, 4)  # the ROADMAP Queue 1 item that ports it
+    with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}$"):
         TwoStepTrainer(model, ProblemConfig(node_id=15, ele_id=8),
                        TrainConfig(**{field: value}))
 
@@ -115,6 +116,8 @@ def test_port_sources_import_no_jax():
              os.path.join(ROOT, "examples", "train_scaled_3d_torch.py"),
              os.path.join(ROOT, "examples", "train_scaled_rom_torch.py"),
              os.path.join(ROOT, "examples", "stencil_kernel_study_torch.py"),
+             os.path.join(ROOT, "examples", "postprocess_vi_torch.py"),
+             os.path.join(ROOT, "examples", "train_analytic_case_torch.py"),
              os.path.join(ROOT, "tools", "profile_scaled_torch.py")]
     for m in pkgutil.walk_packages(vbicm_tpu_torch.__path__, "vbicm_tpu_torch."):
         files.append(importlib.util.find_spec(m.name).origin)
@@ -163,6 +166,16 @@ def test_scaled_rom_example_refuses_to_run_without_a_gpu():
     proc = subprocess.run([sys.executable,
                            os.path.join(ROOT, "examples", "train_scaled_rom_torch.py"),
                            "--nx", "8", "--ny", "4", "--n-data", "8"],
+                          cwd=ROOT, capture_output=True, text=True, timeout=120,
+                          env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    assert proc.returncode != 0
+    assert "no GPU" in proc.stderr
+
+
+def test_postprocess_example_refuses_to_run_without_a_gpu():
+    proc = subprocess.run([sys.executable,
+                           os.path.join(ROOT, "examples", "postprocess_vi_torch.py"),
+                           "--n-data", "8", "--quick-train-epochs", "1"],
                           cwd=ROOT, capture_output=True, text=True, timeout=120,
                           env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
     assert proc.returncode != 0

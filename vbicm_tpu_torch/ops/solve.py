@@ -21,6 +21,13 @@ coordinates and w, b' = the adjoint's solution and coordinates,
 
 since w^T A x = sum g a b' and w^T B x = sum a b'. Every solve, forward,
 refinement and adjoint, goes through the kernel.
+
+Second derivatives (a Hessian through the solve, ``create_graph=True``):
+the backward pass then takes the adjoint solve through the solve itself,
+and the coefficient cotangent in the full space, ``cbar = -(w^T A x,
+w^T B x)`` with the saved output x, so that autograd can differentiate the
+backward pass; without a graph it is the eigen-coordinate form above. The
+matrix-free solve has no second derivative yet.
 """
 from __future__ import annotations
 
@@ -78,14 +85,24 @@ class _SpectralSolve(torch.autograd.Function):
     @staticmethod
     def forward(ctx, coeffs, f, solver):
         x, a = solver.coords_and_apply(coeffs, f)
-        ctx.save_for_backward(coeffs, a)
+        ctx.save_for_backward(coeffs, a, x)
         ctx.solver = solver
         return x
 
     @staticmethod
     def backward(ctx, xbar):
-        coeffs, a = ctx.saved_tensors
+        coeffs, a, x = ctx.saved_tensors
         solver = ctx.solver
+        if torch.is_grad_enabled():
+            # create_graph: every tensor below is tracked, so the backward
+            # pass can be differentiated (the JAX bwd, written in the full
+            # space; x is this solve's tracked output)
+            w = _SpectralSolve.apply(coeffs, xbar, solver)
+            cbar = None
+            if ctx.needs_input_grad[0]:
+                cbar = -torch.stack([(w * (x @ P.to(x.dtype))).sum(-1) for P in solver.parts],
+                                    dim=-1).to(coeffs.dtype)
+            return cbar, w, None
         w, b = solver.coords_and_apply(coeffs, xbar)
         cbar = None
         if ctx.needs_input_grad[0]:
@@ -271,6 +288,10 @@ class _MatfreeSolve(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, ubar):
+        if torch.is_grad_enabled():
+            raise NotImplementedError(
+                "a second derivative through the matrix-free solve (backward with "
+                "create_graph=True) is not ported; ROADMAP Queue 1 item 8")
         coeffs, u = ctx.saved_tensors
         solver = ctx.solver
         w = solver.solve_once(coeffs, ubar)

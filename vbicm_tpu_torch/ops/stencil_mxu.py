@@ -40,6 +40,8 @@ KDIM = 3 * WIN + 8  # the three windows and 8 zeros: 416
 MODES = ("bf16x3", "f32")
 # rows of the kernel's k-steps: BF16 m16n8k16, TF32 m16n8k8 MMAs
 KSTEP = {"bf16x3": 16, "f32": 8}
+SLICE = 32  # output lanes a block of the kernel (csrc/stencil_mxu.cu, kSlice)
+MAX_GRID_Y = 65535  # CUDA's limit on a grid's y extent: the kernel's NY * slices
 
 
 def n_tiles(NX: int) -> int:
@@ -220,6 +222,7 @@ def stencil_affine_matvec_mxu(m_bands, coeffs, u, NY: int, NX: int, mode: str = 
                          f"u {tuple(u.shape)} for NY={NY}, NX={NX}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("stencil_affine_matvec_mxu: every tensor must be contiguous")
+    check_launch_rules(tables, coeffs, u, NY, NX)
 
     q = torch.empty_like(u)
     if B > 0:
@@ -237,6 +240,29 @@ def stencil_affine_matvec_mxu(m_bands, coeffs, u, NY: int, NX: int, mode: str = 
 
 
 stencil_affine_matvec_mxu.launches = 0
+
+
+def check_launch_rules(tables, coeffs, u, NY: int, NX: int):
+    """Raise ``ValueError`` naming the rule where the kernel's launcher
+    (``csrc/stencil_mxu.cu``, ``launch``) would refuse the call: the tables
+    must start on a 16-byte boundary (their band blocks are copied as
+    16-byte pieces), coeffs and u on an 8-byte one (u is copied as 8-byte
+    pairs), and the grid of NY * ceil(2NX / 32) blocks must fit CUDA's
+    65535. A contiguous view at an odd offset (``t[1:]``) breaks the first
+    two. Takes tensors on any device, so the rules are testable on the CPU;
+    the wrapper checks them before every launch."""
+    for i, t in enumerate(tables):
+        if t.data_ptr() % 16:
+            raise ValueError(f"stencil_affine_matvec_mxu: table {i} must start on a 16-byte "
+                             "boundary (its band blocks are copied as 16-byte pieces)")
+    for name, t in (("coeffs", coeffs), ("u", u)):
+        if t.data_ptr() % 8:
+            raise ValueError(f"stencil_affine_matvec_mxu: {name} must start on an 8-byte "
+                             "boundary (it is copied as 8-byte pairs)")
+    blocks = NY * -(-2 * NX // SLICE)
+    if blocks > MAX_GRID_Y:
+        raise ValueError(f"stencil_affine_matvec_mxu: the grid of NY * ceil(2NX / {SLICE}) = "
+                         f"{blocks} blocks exceeds CUDA's {MAX_GRID_Y} (NY={NY}, NX={NX})")
 
 
 def launch_plan(B: int, NY: int, NX: int, mode: str = "bf16x3"):

@@ -8,6 +8,8 @@ sqrt(3 J2); it is the quantity the reference trains and validates on.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -31,11 +33,17 @@ _IDX6 = np.array([0, 4, 8, 3, 7, 2])
 PDEVS6 = _pdevs9()[np.ix_(_IDX6, _IDX6)]
 
 
+@functools.lru_cache(maxsize=None)
+def _pdevs6(dtype, device) -> torch.Tensor:
+    """PDEVS6 on ``device``, made once: a copy from the host at every call
+    would synchronise the device with the host (once a step of a sampler)."""
+    return torch.as_tensor(PDEVS6, dtype=dtype, device=device)
+
+
 def von_mises_reference(sig6):
     """Reference-convention von Mises: sqrt(0.5 * sum((PDEVS6 @ sig6)^2)).
 
     sig6: (..., 6) stress [s11, s22, s33, t12, t23, t31].
     """
-    p6 = torch.as_tensor(PDEVS6, dtype=sig6.dtype, device=sig6.device)
-    s = sig6 @ p6.T
+    s = sig6 @ _pdevs6(sig6.dtype, sig6.device).T
     return torch.sqrt(0.5 * torch.sum(s * s, dim=-1))

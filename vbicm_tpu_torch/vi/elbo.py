@@ -1,5 +1,6 @@
 """ELBO terms for the two-step amortized VI scheme (counterpart of
-``vbicm_tpu/vi/elbo.py``, mean-field posterior).
+``vbicm_tpu/vi/elbo.py``: the mean-field posterior, and the full-covariance
+step-1 loss that per-observation refinement uses).
 
   step 1, q(theta|y):        loss = term1 - term2 - term3
   step 2, p(z|y) lognormal:  loss = alpha*(term4 - term5) + moment_match_loss
@@ -73,15 +74,68 @@ def term3(theta_mean, theta_sig):
 
 
 def make_loss_step1(batch_f, e_data, sig_e, pairing="cross"):
-    """``loss(y, (theta_mean, theta_sig, log_theta_sig))`` for step 1."""
+    """``loss(y, (theta_mean, theta_sig, log_theta_sig)[, e])`` for step 1.
+    ``e`` (same (ne, d) shape) overrides the closed-over fixed seeds for
+    one evaluation: fresh reparameterization noise."""
 
-    def loss(y, outputs):
+    def loss(y, outputs, e=None):
+        e = e_data if e is None else e
         theta_mean, theta_sig, log_theta_sig = outputs
         t1 = term1(log_theta_sig)
-        t2 = term2(y, theta_mean, theta_sig, e_data, batch_f, sig_e, pairing,
+        t2 = term2(y, theta_mean, theta_sig, e, batch_f, sig_e, pairing,
                    log_theta_sig=log_theta_sig)
         t3 = term3(theta_mean, theta_sig)
         return t1 - t2 - t3
+
+    return loss
+
+
+# ---------------------------------------------------------------------------
+# Full-covariance posterior, q = N(mu, L L^T)
+# ---------------------------------------------------------------------------
+
+
+def reparameterize_fullcov(theta_mean, L, e_data):
+    """theta = mu + L e with a per-observation Cholesky factor:
+    (B, d), (B, d, d), (ne, d) -> (B*ne, d), observation-major."""
+    theta = theta_mean[:, None, :] + torch.einsum("bij,nj->bni", L, e_data)
+    return theta.reshape(-1, theta.shape[-1])
+
+
+def term1_fullcov(log_diag):
+    """-entropy of q = N(mu, L L^T), with log L_ii = 0.5 * log_diag (the
+    squared diagonal is parameterized, as the mean-field head's variance)."""
+    d = log_diag.shape[-1]
+    return (
+        -0.5 * torch.mean(torch.sum(log_diag, dim=-1), dim=0)
+        - 0.5 * d * math.log(2.0 * math.pi)
+        - 0.5 * d
+    )
+
+
+def term3_fullcov(theta_mean, L):
+    """Cross-entropy to the N(0, I) prior: E[theta^T theta] =
+    tr(L L^T) + |mu|^2 = sum L^2 + |mu|^2."""
+    d = theta_mean.shape[-1]
+    return -0.5 * d * math.log(2.0 * math.pi) - 0.5 * torch.mean(
+        torch.sum(L**2, dim=(-2, -1)) + torch.sum(theta_mean**2, dim=-1), dim=0
+    )
+
+
+def make_loss_step1_fullcov(batch_f, e_data, sig_e):
+    """``loss(y, (theta_mean, L, log_diag)[, e])``, the step-1 loss of the
+    full-covariance posterior. Per-observation pairing only."""
+
+    def loss(y, outputs, e=None):
+        e = e_data if e is None else e
+        theta_mean, L, log_diag = outputs
+        d_y = y.shape[-1]
+        ne = e.shape[0]
+        f_data = batch_f(reparameterize_fullcov(theta_mean, L, e))
+        f_r = f_data.reshape(y.shape[0], ne, d_y)
+        l2 = -0.5 / sig_e * torch.sum((y[:, None, :] - f_r) ** 2, dim=-1)
+        t2 = -0.5 * d_y * math.log(2.0 * math.pi * sig_e) + torch.mean(l2)
+        return term1_fullcov(log_diag) - t2 - term3_fullcov(theta_mean, L)
 
     return loss
 
@@ -117,10 +171,12 @@ def moment_match_loss(z_mean, z_sig, logz_mean_post, logz_sig_post):
 
 
 def make_loss_step2(batch_h, e_data, sig_eta, alpha, pairing="cross"):
-    """``loss((y, logz_mean_post, logz_sig_post), outputs)`` for step 2,
-    outputs = (theta_mean, theta_sig, z_mean, z_sig, log_z_sig)."""
+    """``loss((y, logz_mean_post, logz_sig_post), outputs[, e])`` for step 2,
+    outputs = (theta_mean, theta_sig, z_mean, z_sig, log_z_sig); ``e``
+    overrides the fixed seeds for one evaluation."""
 
-    def loss(batch, outputs):
+    def loss(batch, outputs, e=None):
+        e = e_data if e is None else e
         _, logz_mean_post, logz_sig_post = batch
         theta_mean, theta_sig, z_mean, z_sig, log_z_sig = outputs
         mm = moment_match_loss(z_mean, z_sig, logz_mean_post, logz_sig_post)
@@ -129,7 +185,7 @@ def make_loss_step2(batch_h, e_data, sig_eta, alpha, pairing="cross"):
             # poison the pure moment-matching loss
             return mm
         t4 = term4(z_mean, log_z_sig)
-        t5 = term5(theta_mean, theta_sig, z_mean, z_sig, e_data, batch_h, sig_eta, pairing)
+        t5 = term5(theta_mean, theta_sig, z_mean, z_sig, e, batch_h, sig_eta, pairing)
         return (t4 - t5) * alpha + mm
 
     return loss

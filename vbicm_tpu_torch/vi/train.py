@@ -29,16 +29,17 @@ from ..config import ProblemConfig, TrainConfig
 from ..model import FemModel
 from ..models.mlp import ThetaPosteriorNet, ZPredictiveNet
 from ..solver import make_fh_fun
+from ..utils.draws import draw_normal
 from .elbo import make_loss_step1, make_loss_step2
 
-# TrainConfig fields this package does not implement yet, with the only
-# value it accepts.
+# TrainConfig fields this package does not implement yet: the only value it
+# accepts, and the ROADMAP Queue 1 item that ports the rest.
 _NOT_PORTED = {
-    "posterior": "meanfield",
-    "ckpt_every": 0,
-    "ckpt_chunk": False,
-    "clip_grad_norm": None,
-    "resample_e": False,
+    "posterior": ("meanfield", 4),
+    "ckpt_every": (0, 2),
+    "ckpt_chunk": (False, 2),
+    "clip_grad_norm": (None, 2),
+    "resample_e": (False, 4),
 }
 
 
@@ -79,11 +80,11 @@ class TwoStepTrainer:
         nets (``models.mlp``); ``None`` keeps the reference's raw inputs.
         ``bridge_chunk`` bounds the batch of the bridge's FEM sweep over the
         n * ne posterior samples."""
-        for field, accepted in _NOT_PORTED.items():
+        for field, (accepted, item) in _NOT_PORTED.items():
             if getattr(tcfg, field) != accepted:
                 raise NotImplementedError(
                     f"TrainConfig.{field}={getattr(tcfg, field)!r} is not ported yet "
-                    f"(only {accepted!r})"
+                    f"(only {accepted!r}); ROADMAP Queue 1 item {item}"
                 )
         if tcfg.pairing not in ("cross", "per_sample"):
             raise ValueError(f"unknown pairing {tcfg.pairing!r}")
@@ -129,7 +130,7 @@ class TwoStepTrainer:
                                 betas=(0.9, 0.999), eps=1e-7)
 
     def _tensor(self, x):
-        return torch.as_tensor(np.asarray(x), dtype=self.dtype).to(self.device)
+        return torch.as_tensor(x, dtype=self.dtype, device=self.device)
 
     def _lr_decay(self, opt, hist, epoch, loss_val) -> bool:
         """Reference or fixed decay-on-plateau; scales every param group's
@@ -270,3 +271,26 @@ class TwoStepTrainer:
             theta_mean, theta_sig, _ = theta_net(y)
             z_mean, z_sig, _ = z_net(y)
         return theta_mean, theta_sig, z_mean, z_sig
+
+    def sample_theta(self, theta_net, y, e):
+        """Posterior draws theta ~ q(.|y) from base noise ``e (ne, d)``:
+        (B, ne, d), differentiable in the net's weights. The sampling
+        surface of the evaluation (comparison, refinement warm starts), so
+        that it need not know the posterior's parameterization; only the
+        mean-field family is ported (the trainer refuses the others)."""
+        y, e = self._tensor(y), self._tensor(e)
+        theta_mean, theta_sig, _ = theta_net(y)
+        return e[None, :, :] * torch.sqrt(theta_sig)[:, None, :] + theta_mean[:, None, :]
+
+    def theta_sampler(self, theta_net, y):
+        """``sampler(generator, num_sam) -> theta (n_y, num_sam, d)`` for the
+        ``proposed_sampler`` hook of ``eval.comparison.kld_maps`` and
+        ``mean_sig_fields``: exact posterior draws, the base noise from
+        ``generator``."""
+        y = self._tensor(y)
+
+        def sampler(generator, num_sam):
+            e = draw_normal(generator, (num_sam, self.cfg.theta_dim), self.dtype, self.device)
+            return self.sample_theta(theta_net, y, e)
+
+        return sampler
