@@ -1,7 +1,7 @@
 """On-card smoke test of the PyTorch port (``vbicm_tpu_torch``) on one GPU.
 
 Builds the CUDA kernels from the sources in this checkout and holds each
-against its plain PyTorch version. Then six paths, each driven through the
+against its plain PyTorch version. Then seven paths, each driven through the
 entry points a user calls, with the kernels' launch counts set to 0 just
 before and read just after:
 
@@ -51,7 +51,15 @@ before and read just after:
   Laplace against its CPU run, and the comparison pipeline (KLD maps and
   mean/variance fields on a 4x4 y-grid); then per-observation refinement
   through the 3-D trainer's 32x8x8 solver (150 steps, cut from the
-  example's 1500).
+  example's 1500);
+- the rest of the trainer (phases 35-40), on Cook's 20x10 at the
+  reference's widths, each phase with the spectral count zeroed before it:
+  the dense Cholesky and inverse solvers against the spectral fh (and
+  timed beside it), the full-covariance and flow posteriors (3 + 3 epochs,
+  steps/s beside the mean field's), exact resume from the trainer's
+  checkpoints against the uninterrupted runs (printed bitwise, gated at
+  1e-12), gradient clipping with resampled base draws, and the dataset's
+  .npz round trip.
 
 Phase 1 fails if a spectral, stencil, quad4 element or banded kernel spills
 registers; phases 2, 8, 13, 18 and 25 hold two calls of a kernel bitwise
@@ -598,6 +606,7 @@ def main():
     elem = element_path(dev, card)
     study = study_path(dev, card)
     evals = eval_path(dev, card, box)
+    fams = trainer_path(dev, card, model, ds, thetas, fh64, steps_per_s)
 
     times[BOX_COARSE_SHAPE, torch.float32] = box["spectral_ms"][torch.float32]
     times[BOX_COARSE_SHAPE, torch.float64] = box["spectral_ms"][torch.float64]
@@ -622,13 +631,18 @@ def main():
         "replaces": "vbicm_tpu/ops/spectral_pallas.py:56",
         "launches": (launches + scaled["spectral_launches"] + box["spectral_launches"]
                      + elem["spectral_launches"] + evals["eval_20x10"]
-                     + evals["refine_32x8x8"][0]),
+                     + evals["refine_32x8x8"][0] + fams["fullcov"][0] + fams["flow"][0]
+                     + fams["resume"] + fams["clip"]),
         "launches_by_path": {"cooks_20x10": launches,
                              "scaled_160x80": scaled["spectral_launches"],
                              "box3d_32x8x8": box["spectral_launches"],
                              "rom_160x80": elem["spectral_launches"],
                              "eval_20x10": evals["eval_20x10"],
-                             "refine_32x8x8": evals["refine_32x8x8"][0]},
+                             "refine_32x8x8": evals["refine_32x8x8"][0],
+                             "fullcov_20x10": fams["fullcov"][0],
+                             "flow_20x10": fams["flow"][0],
+                             "resume_20x10": fams["resume"],
+                             "clip_resample_20x10": fams["clip"]},
         "max_abs_err": main_abs_err,
         **{k: spectral[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
         "library_ms": None,  # no one PyTorch call computes V diag(1/d) V^T b per sample
@@ -1961,6 +1975,281 @@ def eval_path(dev, card, box):
           f"{tm3[0].tolist()} -> refined {mu.tolist()} (true {ds3.theta_data[0].tolist()}); "
           f"launches stencil3d {n4}, spectral {n1}; {1e3 * dt / steps:.2f} ms a step "
           f"({dt:.2f} s) on {card}", flush=True)
+    return out
+
+
+def trainer_path(dev, card, model, ds, thetas, fh64, mf_steps_per_s):
+    """Phases 35-40: the rest of the two-step trainer on Cook's 20x10 at the
+    reference's widths, each phase with the spectral launch count zeroed
+    before it and its wall time: the dense Cholesky and inverse solvers
+    against the spectral solve (phase 5's 256 thetas), the full-covariance
+    and flow posteriors (phase 6's dataset, 3 + 3 epochs), exact resume from
+    the trainer's checkpoints, gradient clipping with resampled base draws,
+    and the dataset's .npz round trip. ``model``, ``ds``, ``thetas`` and
+    ``fh64`` are phases 5-6's; ``mf_steps_per_s`` is phase 7's mean-field
+    rate. Returns the spectral launch counts by path."""
+    import tempfile
+
+    from vbicm_tpu_torch.config import ProblemConfig, TrainConfig
+    from vbicm_tpu_torch.models.flow import flow_moments
+    from vbicm_tpu_torch.ops.element import material_coeffs
+    from vbicm_tpu_torch.ops.solve import make_dense_affine_solver, make_spectral_affine_solver
+    from vbicm_tpu_torch.ops.spectral_kernel import spectral_apply_batched
+    from vbicm_tpu_torch.prob.datagen import load_dataset, save_dataset
+    from vbicm_tpu_torch.solver import make_fh_fun
+    from vbicm_tpu_torch.vi.train import TwoStepTrainer
+
+    def phase_start():
+        torch.cuda.synchronize()
+        spectral_apply_batched.launches = 0
+        return time.perf_counter()
+
+    def phase_end(t0):
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, spectral_apply_batched.launches
+
+    cfg = ProblemConfig()
+    out = {}
+
+    # 35. the dense Cholesky and inverse solvers (f64, and a float32 factor
+    #     with two refinements) against the f64 spectral fh on phase 5's 256
+    #     thetas; the coefficient gradient against the spectral solve's;
+    #     each solve's time beside #1's at (256, 440)
+    t0 = phase_start()
+    with torch.no_grad():
+        y64, h64 = fh64(thetas)
+    parts = torch.stack([model.k_lam_ff, model.k_mu_ff])
+    E = torch.exp(0.1 * thetas[:, 0] + math.log(20.0))
+    nu = 0.5 * torch.sigmoid(0.015 * thetas[:, 1])
+    coeffs = torch.stack(material_coeffs(model.stype, E, nu), dim=-1)
+    f = model.f_free.expand(coeffs.shape[0], -1)
+    w = torch.randn(f.shape, generator=torch.Generator().manual_seed(35),
+                    dtype=torch.float64).to(dev)
+
+    def coeff_grad(solver):
+        c = coeffs.clone().requires_grad_(True)
+        return torch.autograd.grad((w * solver(c, f)).sum(), c)[0]
+
+    spectral = make_spectral_affine_solver(parts)
+    g_ref = coeff_grad(spectral)
+    lines, dense_ms = [], {}
+    with torch.no_grad():
+        dense_ms["spectral (#1)"] = time_ms(lambda: spectral(coeffs, f), warmup=5, reps=50)
+    for method in ("cholesky", "inverse"):
+        for factor, refine, tol in ((None, 0, 1e-10), (torch.float32, 2, 1e-6)):
+            with torch.no_grad():
+                y, h = make_fh_fun(model, cfg, method=method, factor_dtype=factor,
+                                   refine_iters=refine)(thetas)
+            err = max(rel_err(y, y64), rel_err(h, h64))
+            tag = f"{method} {'f64' if factor is None else 'f32 factor + 2 refinements'}"
+            if not err <= tol:
+                fail(f"dense {tag} vs the f64 spectral fh: rel err {err} > {tol}")
+            solver = make_dense_affine_solver(parts, factor_dtype=factor, refine_iters=refine,
+                                              method=method)
+            with torch.no_grad():
+                dense_ms[tag] = time_ms(lambda: solver(coeffs, f), warmup=3, reps=20)
+            lines.append(f"{tag} {err:.2e} (tol {tol:g})")
+        g_err = rel_err(coeff_grad(make_dense_affine_solver(parts, method=method)), g_ref)
+        if not g_err <= 1e-8:
+            fail(f"dense {method}: coefficient gradient vs the spectral solve's {g_err} > 1e-8")
+        lines.append(f"{method} coefficient gradient {g_err:.2e} (tol 1e-8)")
+    dt, _ = phase_end(t0)
+    out["dense_ms"] = dense_ms
+    print(f"[35 dense] ok: vs the f64 spectral fh, 256 thetas: {'; '.join(lines)}; solve "
+          f"(256, 440) f64 eager ms (CUDA events): "
+          f"{', '.join(f'{k} {v:.4f}' for k, v in dense_ms.items())}; {dt:.2f} s on {card}",
+          flush=True)
+
+    # 36-37. the full-covariance and flow posteriors, phase 6's run (n_data
+    #     1024, 3 + 3 epochs, f32 apply + 1 refinement) with per-sample
+    #     pairing; steps/s of step-1 epochs 2-3 beside phase 7's mean field
+    steps_per_epoch = math.ceil(ds.n_sam / 64)
+    fams = {}
+    for phase, fam in ((36, "fullcov"), (37, "flow")):
+        tcfg = TrainConfig(batch_size=64, num_epoch1=3, num_epoch2=3, posterior=fam,
+                           pairing="per_sample")
+        trainer = TwoStepTrainer(model, cfg, tcfg, factor_dtype=torch.float32, refine_iters=1)
+        t0 = phase_start()
+        extra = ""
+        if fam == "flow":
+            net0 = trainer.new_theta_net(torch.Generator().manual_seed(0))
+            y8 = torch.as_tensor(ds.y_data[:8], device=dev)
+            e8 = torch.as_tensor(ds.e_data, device=dev)
+            with torch.no_grad():
+                theta0, _ = net0(y8, e8)
+                mu, log_sig = net0.base(y8)
+            if not torch.equal(theta0, mu[:, None] + torch.exp(0.5 * log_sig)[:, None] * e8[None]):
+                fail("flow: at init theta is not the mean-field base bitwise")
+            extra = "at init theta = the mean-field base bitwise; "
+        res = trainer.fit(ds.y_data, ds.e_data, torch.Generator().manual_seed(1))
+        dt, n1 = phase_end(t0)
+        fams[fam] = (trainer, res)
+        losses = np.concatenate([res.hist_step1, res.hist_step2])
+        if not np.all(np.isfinite(losses)) or n1 <= 0:
+            fail(f"{fam} trainer: losses {losses}, spectral launches {n1}")
+        if fam == "fullcov":
+            tm, tsig, _, _ = trainer.predict(res.theta_net, res.z_net, ds.y_data[:8])
+            mu, L = trainer.predict_cholesky(res.theta_net, ds.y_data[:8])
+            if not (torch.equal(tsig, torch.sum(L**2, dim=-1)) and torch.equal(tm, mu)):
+                fail("fullcov: predict's variances are not diag(L L^T) of predict_cholesky")
+            extra = "predict = diag(L L^T) of predict_cholesky; "
+        else:
+            m, v = flow_moments(res.theta_net, ds.y_data[:8], torch.Generator().manual_seed(2),
+                                n_mc=256)
+            if not (m.shape == v.shape == (8, 2) and bool(torch.isfinite(m).all())
+                    and bool((v > 0).all())):
+                fail(f"flow_moments: mean {m}, var {v}")
+            extra += f"flow_moments (n_mc 256) theta mean {m[0].tolist()}; "
+        rate = steps_per_epoch * 2 / sum(res.epoch_times_step1[1:])
+        out[fam] = (n1, rate)
+        print(f"[{phase} {fam}] ok: step1 losses {res.hist_step1.tolist()}, step2 "
+              f"{res.hist_step2.tolist()}; {extra}spectral launches {n1}; step-1 steps/s "
+              f"(epochs 2-3) {rate:.2f} against mean field {mf_steps_per_s:.2f} (phase 7); "
+              f"{dt:.2f} s on {card}", flush=True)
+
+    # 38. exact resume from the trainer's checkpoints, each against the
+    #     uninterrupted run: step 1 two epochs + two resumed against four,
+    #     step 2 the same, a crash after a partial final chunk (1000
+    #     observations: 15 full batches and a partial one, scan_chunk 4,
+    #     so the last chunk holds 3) then the resume, and fit(resume=True)
+    #     after step 1
+    class Crash(Exception):
+        pass
+
+    def crashing(fh, after):
+        calls = [0]
+
+        def wrapped(th):
+            calls[0] += 1
+            if calls[0] > after:
+                raise Crash
+            return fh(th)
+
+        return wrapped
+
+    def compare(a_nets, b_nets, a_hists, b_hists):
+        """(bitwise equal, max relative difference) of nets and histories."""
+        pairs = [(x, y) for na, nb in zip(a_nets, b_nets)
+                 for x, y in zip(na.state_dict().values(), nb.state_dict().values())]
+        pairs += [(torch.as_tensor(x), torch.as_tensor(y)) for x, y in zip(a_hists, b_hists)]
+        equal = all(torch.equal(x, y) for x, y in pairs)
+        return equal, max(rel_err(x, y) for x, y in pairs)
+
+    fh32 = make_fh_fun(model, cfg, factor_dtype=torch.float32, refine_iters=1)
+    y, e = ds.y_data, ds.e_data
+    gen = lambda: torch.Generator().manual_seed(1)  # noqa: E731
+    t0 = phase_start()
+    checks = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        def trainer(name, tcfg, fh=fh32):
+            return TwoStepTrainer(model, cfg, tcfg, fh_batch=fh,
+                                  results_path=None if name is None else os.path.join(tmp, name))
+
+        tcfg = TrainConfig(batch_size=64, lr_decay_mode="fixed", lr_patience=2)
+        net4, h4, _ = trainer(None, tcfg).train_step1(y, e, gen(), 4)
+        trainer("s1", tcfg).train_step1(y, e, gen(), 2)
+        net, h, _ = trainer("s1", tcfg).train_step1(y, e, gen(), 4, resume=True)
+        checks["step 1 2 + 2 vs 4"] = compare([net], [net4], [h], [h4])
+
+        g = gen()
+        tr = trainer(None, tcfg)
+        lm, ls = tr.bridge(y, e, net4, g)
+        state = g.get_state()
+        z4, h4, _ = tr.train_step2(y, e, net4, lm, ls, g, 4)
+        g.set_state(state)
+        trainer("s2", tcfg).train_step2(y, e, net4, lm, ls, g, 2)
+        g.set_state(state)
+        z, h, _ = trainer("s2", tcfg).train_step2(y, e, net4, lm, ls, g, 4, resume=True)
+        checks["step 2 2 + 2 vs 4"] = compare([z], [z4], [h], [h4])
+
+        tcfg_c = TrainConfig(batch_size=64, ckpt_chunk=True, scan_chunk=4, ckpt_every=5,
+                             num_epoch1=2, num_epoch2=2)
+        y1k = y[:1000]
+        ref = trainer(None, tcfg_c).fit(y1k, e, gen())
+        try:  # the crash is the run's own: fh raises in epoch 1's partial batch
+            trainer("chunk", tcfg_c, crashing(fh32, 16 + 15)).fit(y1k, e, gen())
+            fail("the crashing run did not crash")
+        except Crash:
+            pass
+        bundle = torch.load(os.path.join(tmp, "chunk", "step1", "latest.pt"), weights_only=True)
+        if (bundle["epoch"], bundle["batches_done"]) != (1, 15):
+            fail(f"chunk bundle at epoch {bundle['epoch']}, {bundle['batches_done']} batches, "
+                 "not (1, 15)")
+        res = trainer("chunk", tcfg_c).fit(y1k, e, gen(), resume=True)
+        checks["ckpt_chunk crash after a partial final chunk"] = compare(
+            [res.theta_net, res.z_net], [ref.theta_net, ref.z_net],
+            [res.hist_step1, res.hist_step2], [ref.hist_step1, ref.hist_step2])
+
+        tcfg_f = TrainConfig(batch_size=64, num_epoch1=3, num_epoch2=3)
+        ref = trainer(None, tcfg_f).fit(y, e, gen())
+        trainer("fit", tcfg_f).train_step1(y, e, gen())
+        res = trainer("fit", tcfg_f).fit(y, e, gen(), resume=True)
+        checks["fit(resume=True) after step 1"] = compare(
+            [res.theta_net, res.z_net], [ref.theta_net, ref.z_net],
+            [res.hist_step1, res.hist_step2, res.logz_mean_post],
+            [ref.hist_step1, ref.hist_step2, ref.logz_mean_post])
+
+        tr_w, opt, reps = trainer("write", tcfg), tr.optimizer_step1(net4), 20
+        tic = time.perf_counter()
+        for _ in range(reps):
+            tr_w._save_ckpt("step1", 0, 1.0, net4, opt, h4, g.get_state())
+        write_ms = 1e3 * (time.perf_counter() - tic) / reps
+    dt, n1 = phase_end(t0)
+    out["resume"] = n1
+    bad = [k for k, (_, err) in checks.items() if not err <= 1e-12]
+    text = "; ".join(f"{k}: bitwise {eq}, max rel diff {err:.2e}" for k, (eq, err) in checks.items())
+    if bad or n1 <= 0:
+        fail(f"resume: {bad} beyond 1e-12 relative: {text}; spectral launches {n1}")
+    print(f"[38 resume] ok: {text} (tol 1e-12); an epoch's checkpoint write (the numbered "
+          f"weights file and the latest.pt bundle, each fsynced) {write_ms:.2f} ms; spectral "
+          f"launches {n1}; {dt:.2f} s on {card}", flush=True)
+    out["bundle_write_ms"] = write_ms
+
+    # 39. clip_grad_norm with resampled base draws: two epochs' finite
+    #     histories, then one epoch of update_step1 with every clipped
+    #     step's global norm at most max_norm
+    max_norm = 5.0
+    tcfg = TrainConfig(batch_size=64, num_epoch1=2, clip_grad_norm=max_norm, resample_e=True)
+    t0 = phase_start()
+    tr = TwoStepTrainer(model, cfg, tcfg, fh_batch=fh32)
+    net, hist, _ = tr.train_step1(y, e, gen())
+    opt = tr.optimizer_step1(net)
+    y_t, e_t = torch.as_tensor(y, device=dev), torch.as_tensor(e, device=dev)
+    e_all = torch.randn((steps_per_epoch, *e.shape), generator=torch.Generator().manual_seed(39),
+                        dtype=torch.float64).to(dev)
+    clipped, worst, pre = 0, 0.0, []
+    for b in range(steps_per_epoch):
+        tr.update_step1(net, opt, y_t[b * 64:(b + 1) * 64], e_t, e_all[b])
+        norm = float(torch.sqrt(sum(torch.sum(p.grad**2) for p in net.parameters())))
+        pre.append(float(tr.last_grad_norm))
+        if pre[-1] >= max_norm:
+            clipped += 1
+            worst = max(worst, norm)
+            if not norm <= max_norm + 1e-12:
+                fail(f"clip: the clipped global norm {norm} > {max_norm} + 1e-12")
+    dt, n1 = phase_end(t0)
+    out["clip"] = n1
+    if not np.all(np.isfinite(hist)) or n1 <= 0:
+        fail(f"clip_grad_norm + resample_e: losses {hist}, spectral launches {n1}")
+    print(f"[39 clip] ok: clip_grad_norm {max_norm} + resample_e, step1 losses {hist.tolist()}; "
+          f"{clipped} of {steps_per_epoch} steps clipped (norms before clipping "
+          f"{min(pre):.3f}-{max(pre):.3f}), clipped norms <= {worst!r} (<= {max_norm} + 1e-12); "
+          f"spectral launches {n1}; {dt:.2f} s", flush=True)
+
+    # 40. phase 6's dataset through the .npz form, bitwise
+    t0 = phase_start()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "data.npz")
+        save_dataset(ds, path)
+        back = load_dataset(path)
+    fields = ("y_data", "z_data", "log_z_data", "e_data", "y_mean", "y_std", "z_mean", "z_std",
+              "theta_data")
+    unequal = [k for k in fields if not np.array_equal(getattr(back, k), getattr(ds, k))]
+    dt, _ = phase_end(t0)
+    if unequal:
+        fail(f"dataset .npz round trip: {unequal} differ")
+    print(f"[40 dataset] ok: phase 6's {ds.n_sam}-point dataset through .npz bitwise equal "
+          f"({len(fields)} fields); {dt:.2f} s", flush=True)
     return out
 
 

@@ -20,9 +20,10 @@ on 16 thetas. Then the posterior probe: per-observation refinement
 1e-2) from the amortized posterior of the first 4 observations, through the
 training solver; ``--refine-steps`` (default 1500) cuts its depth.
 
-Left out against the JAX example: ``--resume``, the dataset cache and
-checkpoints (ROADMAP Queue 1 item 2). Writes the loss histories and a
-summary to ``--results``.
+Writes checkpoints (every epoch), the dataset cache, the loss histories and
+a summary to ``--results``; ``--resume`` goes on from the checkpoints there
+along the uninterrupted run's trajectory, and reuses the cached dataset when
+it was made for the same seed, sizes and mesh.
 
     python examples/train_scaled_3d_torch.py --device cuda --n-data 256 --epochs1 2 --epochs2 2
 """
@@ -51,6 +52,8 @@ def main():
     ap.add_argument("--results", type=str, default="results_scaled_3d_torch")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--refine-steps", type=int, default=1500)
+    ap.add_argument("--resume", action="store_true",
+                    help="continue from the trainer's checkpoints in --results")
     ap.add_argument("--device", type=str, default="cuda")
     args = ap.parse_args()
 
@@ -59,7 +62,7 @@ def main():
     from vbicm_tpu_torch.config import ProblemConfig, SectionCard, TrainConfig
     from vbicm_tpu_torch.mesh import beam_hex8_mesh
     from vbicm_tpu_torch.model import build_fem_model
-    from vbicm_tpu_torch.prob.datagen import generate_data_fem
+    from vbicm_tpu_torch.prob.datagen import cached_dataset, generate_data_fem
     from vbicm_tpu_torch.solver import make_fh_fun, make_two_level_solver_box3d
     from vbicm_tpu_torch.vi.refine import refine_posterior
     from vbicm_tpu_torch.vi.train import TwoStepTrainer
@@ -98,21 +101,34 @@ def main():
     summary.update(ndof=model.ndof, build_s=build_s)
 
     t0 = time.time()
-    ds = generate_data_fem(torch.Generator().manual_seed(args.seed), fh, n_sam=args.n_data,
-                           ne_sam=4, device=device, d_y=3, sig_e=cfg.sig_e, sig_eta=cfg.sig_eta,
-                           chunk=512)
+    # a resumed run must not pay the dataset's 3-D solves again, nor train on
+    # a dataset made for another configuration
+    os.makedirs(args.results, exist_ok=True)
+    key = {"seed": args.seed, "n_data": args.n_data, "ne_sam": 4,
+           "mesh": f"{args.nx}x{args.ny}x{args.nz} ratio {args.ratio}"}
+    ds, cached = cached_dataset(
+        os.path.join(args.results, "dataset_cache.npz"), key,
+        lambda: generate_data_fem(torch.Generator().manual_seed(args.seed), fh,
+                                  n_sam=args.n_data, ne_sam=4, device=device, d_y=3,
+                                  sig_e=cfg.sig_e, sig_eta=cfg.sig_eta, chunk=512),
+        reuse=args.resume)
     summary["datagen_s"] = time.time() - t0
-    print(f"{args.n_data}-point 3-D dataset in {summary['datagen_s']:.1f}s")
+    print(f"{ds.n_sam}-point 3-D dataset ({'cached' if cached else 'generated'}) in "
+          f"{summary['datagen_s']:.1f}s")
 
+    # ckpt_every=1: a bundle every epoch, so a crash costs at most one
     tcfg = TrainConfig(batch_size=64, num_epoch1=args.epochs1, num_epoch2=args.epochs2,
-                       lr_decay_mode="fixed", pairing="per_sample")
+                       lr_decay_mode="fixed", pairing="per_sample", ckpt_every=1)
     trainer = TwoStepTrainer(None, cfg, tcfg, fh_batch=fh, device=device, verbose=True,
-                             y_norm=(ds.y_mean, ds.y_std), bridge_chunk=512)
+                             y_norm=(ds.y_mean, ds.y_std), bridge_chunk=512,
+                             results_path=args.results)
     t0 = time.time()
-    res = trainer.fit(ds.y_data, ds.e_data, torch.Generator().manual_seed(args.seed + 1))
+    res = trainer.fit(ds.y_data, ds.e_data, torch.Generator().manual_seed(args.seed + 1),
+                      resume=args.resume)
     train_s = time.time() - t0
-    steps_per_epoch = -(-args.n_data // 64)
-    n_steps = steps_per_epoch * (args.epochs1 + args.epochs2)
+    steps_per_epoch = -(-ds.n_sam // 64)
+    # the epochs this run trained (a resumed run skips the banked ones)
+    n_steps = steps_per_epoch * (len(res.epoch_times_step1) + len(res.epoch_times_step2))
     print(f"two-step 3-D full-order training: {train_s:.1f}s ({n_steps / train_s:.2f} steps/s "
           f"at 256 3-D solves/step)")
     print(f"step1 last-batch {res.hist_step1[-1]:.4f}, step2 {res.hist_step2[-1]:.3e}")
@@ -146,7 +162,6 @@ def main():
     summary.update(probe_rel_err_y=y_err, probe_rel_err_h=h_err)
 
     # the training metrics are written before the validation
-    os.makedirs(args.results, exist_ok=True)
     np.savez(os.path.join(args.results, "train_hist.npz"),
              train_loss_step1=res.hist_step1, train_loss_step2=res.hist_step2)
     with open(os.path.join(args.results, "summary.json"), "w") as f:

@@ -7,8 +7,10 @@ spectral kernel for the coarse solve; float32 CG plus one refinement),
 step, the reference's 3x20 MLPs.
 
 Speed mode (default): split-float32 refinement residuals; ``--exact``
-switches to float64 residuals. Writes the loss histories and a summary to
-``--results``.
+switches to float64 residuals. Writes checkpoints, the dataset cache, the
+loss histories and a summary to ``--results``; ``--resume`` goes on from
+the checkpoints there, and reuses the cached dataset when it was made for
+the same seed, sizes and mesh.
 
     python examples/train_scaled_fullorder_torch.py --device cuda --n-data 256 --epochs1 2 --epochs2 2
 """
@@ -36,6 +38,8 @@ def main():
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--exact", action="store_true",
                     help="float64 refinement residuals instead of split-float32")
+    ap.add_argument("--resume", action="store_true",
+                    help="continue from the latest checkpoints in --results")
     ap.add_argument("--device", type=str, default="cuda")
     args = ap.parse_args()
 
@@ -44,7 +48,9 @@ def main():
     from vbicm_tpu_torch.config import ProblemConfig, TrainConfig
     from vbicm_tpu_torch.mesh import cooks_membrane_mesh
     from vbicm_tpu_torch.model import build_fem_model
-    from vbicm_tpu_torch.prob.datagen import generate_data_fem
+    from vbicm_tpu_torch.ops.spectral_kernel import spectral_apply_batched
+    from vbicm_tpu_torch.ops.stencil_kernel import stencil_affine_matvec
+    from vbicm_tpu_torch.prob.datagen import cached_dataset, generate_data_fem
     from vbicm_tpu_torch.solver import make_fh_fun, make_two_level_solver
     from vbicm_tpu_torch.vi.train import TwoStepTrainer
 
@@ -72,25 +78,39 @@ def main():
     summary.update(ndof=model.ndof, build_s=build_s)
 
     t0 = time.time()
-    ds = generate_data_fem(torch.Generator().manual_seed(args.seed), fh, n_sam=args.n_data,
-                           ne_sam=4, device=device, sig_e=cfg.sig_e, sig_eta=cfg.sig_eta,
-                           chunk=2048)
+    os.makedirs(args.results, exist_ok=True)
+    ds, cached = cached_dataset(
+        os.path.join(args.results, "dataset_cache.npz"),
+        {"seed": args.seed, "n_data": args.n_data, "ne_sam": 4, "mesh": f"{args.nx}x{args.ny}"},
+        lambda: generate_data_fem(torch.Generator().manual_seed(args.seed), fh,
+                                  n_sam=args.n_data, ne_sam=4, device=device, sig_e=cfg.sig_e,
+                                  sig_eta=cfg.sig_eta, chunk=2048),
+        reuse=args.resume)
     summary["datagen_s"] = time.time() - t0
-    print(f"{args.n_data}-point dataset (full-order sweep) in {summary['datagen_s']:.1f}s")
+    print(f"{ds.n_sam}-point dataset ({'cached' if cached else 'full-order sweep'}) in "
+          f"{summary['datagen_s']:.1f}s")
 
     tcfg = TrainConfig(batch_size=64, num_epoch1=args.epochs1, num_epoch2=args.epochs2)
-    trainer = TwoStepTrainer(None, cfg, tcfg, fh_batch=fh, device=device, verbose=True)
+    trainer = TwoStepTrainer(None, cfg, tcfg, fh_batch=fh, device=device, verbose=True,
+                             results_path=args.results)
+    # the kernels' launches in training (the counts of ops.spectral_kernel
+    # and ops.stencil_kernel, zeroed here)
+    spectral_apply_batched.launches = stencil_affine_matvec.launches = 0
     t0 = time.time()
-    res = trainer.fit(ds.y_data, ds.e_data, torch.Generator().manual_seed(args.seed + 1))
+    res = trainer.fit(ds.y_data, ds.e_data, torch.Generator().manual_seed(args.seed + 1),
+                      resume=args.resume)
     train_s = time.time() - t0
-    n_steps = -(-args.n_data // 64) * (args.epochs1 + args.epochs2)
-    print(f"two-step full-order training: {train_s:.1f}s ({n_steps / train_s:.3f} steps/s, "
-          f"256 full-order solves per step-1 step)")
+    summary["training_launches"] = {"spectral_apply": spectral_apply_batched.launches,
+                                    "stencil_affine": stencil_affine_matvec.launches}
+    # the epochs this run trained (a resumed run skips the banked ones)
+    n_epochs = len(res.epoch_times_step1) + len(res.epoch_times_step2)
+    n_steps = -(-ds.n_sam // 64) * n_epochs
+    print(f"two-step full-order training: {n_epochs} epochs in {train_s:.1f}s "
+          f"({n_steps / train_s:.3f} steps/s, 256 full-order solves per step-1 step)")
     print(f"step1 last-batch {res.hist_step1[-1]:.4f}, step2 {res.hist_step2[-1]:.3e}")
-    summary.update(train_s=train_s, train_steps_per_sec=n_steps / train_s,
+    summary.update(train_s=train_s, train_epochs=n_epochs, train_steps_per_sec=n_steps / train_s,
                    step1_last=float(res.hist_step1[-1]), step2_last=float(res.hist_step2[-1]))
 
-    os.makedirs(args.results, exist_ok=True)
     np.savez(os.path.join(args.results, "train_hist.npz"),
              train_loss_step1=res.hist_step1, train_loss_step2=res.hist_step2)
     with open(os.path.join(args.results, "summary.json"), "w") as f:

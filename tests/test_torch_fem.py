@@ -109,10 +109,15 @@ def test_fh_takes_the_jax_solver_keywords(model, cooks_model, thetas, dense, kw)
         assert _rel(y, y_conv) > (1e-9 if kw["cg_maxiter"] > 100 else 1e-4)  # 3.8e-9, 0.70
 
 
-def test_solver_methods_not_ported_raise(model):
-    for method in ("cholesky", "inverse"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-            make_fh_fun(model, method=method)
+def test_solver_methods_not_ported_raise(model, thetas):
+    """The dense "cholesky" and "inverse" methods, once refused, match the
+    spectral fh to 1e-12; an unknown method raises ``ValueError``."""
+    th = torch.as_tensor(thetas)
+    with torch.no_grad():
+        y_s, h_s = make_fh_fun(model)(th)
+        for method in ("cholesky", "inverse"):
+            y, h = make_fh_fun(model, method=method)(th)
+            assert _rel(y, y_s) < 1e-12 and _rel(h, h_s) < 1e-12, method
     with pytest.raises(ValueError):
         make_fh_fun(model, method="lu")
     with pytest.raises(ValueError):

@@ -88,12 +88,29 @@ def test_fit_box3d_two_step_on_cpu():
 
 @pytest.mark.parametrize("field,value", [("posterior", "fullcov"), ("ckpt_every", 1),
                                          ("resample_e", True)])
-def test_trainer_rejects_unported_options(field, value):
+def test_trainer_rejects_unported_options(field, value, tmp_path):
+    """The options the trainer once refused as not ported are accepted: one
+    epoch of one batch on Cook's 4x2 takes a finite step (and writes the
+    checkpoint that ``ckpt_every`` asks for)."""
     model = build_fem_model(cooks_membrane_mesh(4, 2), device="cpu")
-    item = {"ckpt_every": 2}.get(field, 4)  # the ROADMAP Queue 1 item that ports it
-    with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}$"):
+    cfg = ProblemConfig(node_id=15, ele_id=8)
+    tcfg = TrainConfig(**{field: value}, pairing="per_sample", batch_size=8, num_epoch1=1)
+    trainer = TwoStepTrainer(model, cfg, tcfg, results_path=str(tmp_path))
+    y = np.random.default_rng(0).normal(scale=0.1, size=(8, 2))
+    e = np.random.default_rng(1).normal(size=(4, 2))
+    net, hist, _ = trainer.train_step1(y, e, torch.Generator().manual_seed(0))
+    assert hist.shape == (1,) and np.isfinite(hist).all()
+    if field == "ckpt_every":
+        assert sorted(os.listdir(tmp_path / "step1"))[0].startswith("00-")
+
+
+@pytest.mark.parametrize("posterior,pairing", [("gaussian", "per_sample"), ("fullcov", "cross"),
+                                               ("flow", "cross")])
+def test_trainer_rejects_what_jax_rejects(posterior, pairing):
+    model = build_fem_model(cooks_membrane_mesh(4, 2), device="cpu")
+    with pytest.raises(ValueError):
         TwoStepTrainer(model, ProblemConfig(node_id=15, ele_id=8),
-                       TrainConfig(**{field: value}))
+                       TrainConfig(posterior=posterior, pairing=pairing))
 
 
 def test_port_imports_no_jax_in_a_fresh_process():
@@ -118,6 +135,8 @@ def test_port_sources_import_no_jax():
              os.path.join(ROOT, "examples", "stencil_kernel_study_torch.py"),
              os.path.join(ROOT, "examples", "postprocess_vi_torch.py"),
              os.path.join(ROOT, "examples", "train_analytic_case_torch.py"),
+             os.path.join(ROOT, "examples", "train_flow_vi_torch.py"),
+             os.path.join(ROOT, "examples", "cooks_forward_torch.py"),
              os.path.join(ROOT, "tools", "profile_scaled_torch.py")]
     for m in pkgutil.walk_packages(vbicm_tpu_torch.__path__, "vbicm_tpu_torch."):
         files.append(importlib.util.find_spec(m.name).origin)
@@ -176,6 +195,15 @@ def test_postprocess_example_refuses_to_run_without_a_gpu():
     proc = subprocess.run([sys.executable,
                            os.path.join(ROOT, "examples", "postprocess_vi_torch.py"),
                            "--n-data", "8", "--quick-train-epochs", "1"],
+                          cwd=ROOT, capture_output=True, text=True, timeout=120,
+                          env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    assert proc.returncode != 0
+    assert "no GPU" in proc.stderr
+
+
+@pytest.mark.parametrize("example", ["train_flow_vi_torch.py", "cooks_forward_torch.py"])
+def test_new_examples_refuse_to_run_without_a_gpu(example):
+    proc = subprocess.run([sys.executable, os.path.join(ROOT, "examples", example)],
                           cwd=ROOT, capture_output=True, text=True, timeout=120,
                           env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
     assert proc.returncode != 0

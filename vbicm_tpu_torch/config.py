@@ -1,10 +1,7 @@
 """Configuration dataclasses (counterpart of ``vbicm_tpu/config.py``).
 
 Same fields and defaults as the JAX package, so a configuration written for
-one package means the same thing in the other. Fields of features this
-package does not implement yet (full-covariance and flow posteriors,
-checkpoints, gradient clipping, resampled seeds) are kept as data; the
-trainer raises ``NotImplementedError`` when one is set away from its default.
+one package means the same thing in the other.
 """
 from __future__ import annotations
 
@@ -88,9 +85,17 @@ class TrainConfig:
     fires iff the loss ``lr_patience`` epochs ago was negative); "fixed"
     decays when the loss rose over the window.
 
-    ``scan_epochs`` and ``scan_chunk`` only change how the JAX package
-    dispatches an epoch; the update sequence is the same, and this package
-    runs a Python loop for either value.
+    ``scan_epochs`` and ``scan_chunk`` change how the JAX package dispatches
+    an epoch, not its update sequence; this package runs a Python loop for
+    either value. With ``ckpt_chunk`` they set, as there, how often a bundle
+    is written inside an epoch: every ``scan_chunk`` batches (when
+    ``scan_epochs`` and the epoch has more than one full batch).
+    ``ckpt_every`` > 0 writes checkpoints every that many epochs (else
+    ``num_epochs // 5``); ``clip_grad_norm`` clips the gradients' global
+    norm before Adam; ``resample_e`` draws fresh base draws for every batch
+    instead of the dataset's fixed ``e_data``; ``posterior`` is
+    "meanfield", "fullcov" or "flow" (``flow_couplings`` coupling layers,
+    scales bounded by ``flow_s_cap``).
     """
 
     num_neuron: int = 20
@@ -109,7 +114,6 @@ class TrainConfig:
     seed: int = 0
     scan_epochs: bool = True
     scan_chunk: int = 0
-    # Not implemented in this package yet; the trainer rejects other values.
     ckpt_every: int = 0
     ckpt_chunk: bool = False
     clip_grad_norm: float | None = None

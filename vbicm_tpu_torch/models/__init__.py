@@ -1,3 +1,14 @@
-from .mlp import MLP, ThetaPosteriorNet, ZPredictiveNet, init_vi_networks, load_flax_params
+from .flow import ThetaPosteriorFlowNet, flow_moments
+from .mlp import (
+    MLP,
+    ThetaPosteriorFullCovNet,
+    ThetaPosteriorNet,
+    ZPredictiveNet,
+    init_vi_networks,
+    load_flax_params,
+    marginal_variance,
+)
 
-__all__ = ["MLP", "ThetaPosteriorNet", "ZPredictiveNet", "init_vi_networks", "load_flax_params"]
+__all__ = ["MLP", "ThetaPosteriorNet", "ThetaPosteriorFullCovNet", "ThetaPosteriorFlowNet",
+           "ZPredictiveNet", "flow_moments", "init_vi_networks", "load_flax_params",
+           "marginal_variance"]

@@ -3,11 +3,13 @@
 Four MLPs of ``n_layers`` hidden ReLU layers of width ``hidden``, grouped as
 the posterior pair q(theta|y) -> (theta_mean, theta_sig, log_theta_sig) and
 the lognormal predictive pair p(z|y) -> (z_mean, z_sig, log_z_sig); the
-``*_sig`` outputs are variances, exp of the log head. Initialization is
-Keras's Dense default (glorot-uniform weights, zero biases), drawn from an
-explicit ``torch.Generator``. ``y_shift``/``y_scale`` bake a frozen input
-standardization ``(y - shift) / scale`` into a pair net as constants (buffers,
-not parameters); ``None`` leaves the input as it is.
+``*_sig`` outputs are variances, exp of the log head. The full-covariance
+posterior adds a third MLP for the strictly-lower Cholesky entries
+(``ThetaPosteriorFullCovNet``); the flow posterior is ``models.flow``.
+Initialization is Keras's Dense default (glorot-uniform weights, zero
+biases), drawn from an explicit ``torch.Generator``. ``y_shift``/``y_scale``
+bake a frozen input standardization ``(y - shift) / scale`` into a net as
+constants (buffers, not parameters); ``None`` leaves the input as it is.
 """
 from __future__ import annotations
 
@@ -20,11 +22,14 @@ from torch import nn
 
 class MLP(nn.Module):
     """Dense ReLU stack with a linear head. ``layers[i]`` is flax's
-    ``Dense_i``."""
+    ``Dense_i``. ``zero_head=True`` initializes the head's weight to zero
+    (the trunk keeps its glorot init): the full-covariance off-diagonal head
+    and the flow's couplings start as zero maps."""
 
     def __init__(self, in_dim: int, hidden: int = 20, n_layers: int = 3, out_dim: int = 2,
-                 *, dtype=torch.float64, device=None):
+                 *, dtype=torch.float64, device=None, zero_head: bool = False):
         super().__init__()
+        self.zero_head = zero_head
         widths = [in_dim] + [hidden] * n_layers + [out_dim]
         self.layers = nn.ModuleList(
             nn.Linear(i, o, dtype=dtype, device=device) for i, o in zip(widths[:-1], widths[1:])
@@ -35,12 +40,15 @@ class MLP(nn.Module):
         (a CPU generator, so a seed gives the same weights on every device)."""
         with torch.no_grad():
             for layer in self.layers:
+                layer.bias.zero_()
+                if self.zero_head and layer is self.layers[-1]:
+                    layer.weight.zero_()
+                    continue
                 fan_out, fan_in = layer.weight.shape
                 limit = math.sqrt(6.0 / (fan_in + fan_out))
                 w = torch.empty(layer.weight.shape, dtype=layer.weight.dtype)
                 w.uniform_(-limit, limit, generator=generator)
                 layer.weight.copy_(w)
-                layer.bias.zero_()
 
     def forward(self, x):
         for layer in self.layers[:-1]:
@@ -48,7 +56,27 @@ class MLP(nn.Module):
         return self.layers[-1](x)
 
 
-class _PairNet(nn.Module):
+class _YNormNet(nn.Module):
+    """A net of MLP children on a frozen-standardized input y."""
+
+    def _register_y_norm(self, y_shift, y_scale, dtype, device):
+        for name, v in (("y_shift", y_shift), ("y_scale", y_scale)):
+            v = None if v is None else torch.tensor(v, dtype=dtype, device=device)
+            self.register_buffer(name, v)
+
+    def normalize(self, y):
+        if self.y_shift is None:
+            return y
+        return (y - self.y_shift) / self.y_scale
+
+    def reset_parameters(self, generator: torch.Generator):
+        """Every MLP, in registration order, from ``generator``."""
+        for mlp in self.modules():
+            if isinstance(mlp, MLP):
+                mlp.reset_parameters(generator)
+
+
+class _PairNet(_YNormNet):
     """Two MLPs on the same input: a mean head and a log-variance head."""
 
     _names: tuple = ()
@@ -57,17 +85,10 @@ class _PairNet(nn.Module):
         super().__init__()
         for name in self._names:
             self.add_module(name, MLP(y_dim, hidden, n_layers, out_dim, dtype=dtype, device=device))
-        for name, v in (("y_shift", y_shift), ("y_scale", y_scale)):
-            v = None if v is None else torch.tensor(v, dtype=dtype, device=device)
-            self.register_buffer(name, v)
-
-    def reset_parameters(self, generator: torch.Generator):
-        for name in self._names:
-            getattr(self, name).reset_parameters(generator)
+        self._register_y_norm(y_shift, y_scale, dtype, device)
 
     def forward(self, y):
-        if self.y_shift is not None:
-            y = (y - self.y_shift) / self.y_scale
+        y = self.normalize(y)
         mean_net, sig_net = (getattr(self, name) for name in self._names)
         log_sig = sig_net(y)
         return mean_net(y), torch.exp(log_sig), log_sig
@@ -82,6 +103,44 @@ class ThetaPosteriorNet(_PairNet):
                  *, dtype=torch.float64, device=None, y_shift=None, y_scale=None):
         super().__init__(y_dim, hidden, n_layers, theta_dim, dtype=dtype, device=device,
                          y_shift=y_shift, y_scale=y_scale)
+
+
+class ThetaPosteriorFullCovNet(_YNormNet):
+    """q(theta|y) = N(mu(y), L(y) L(y)^T): returns (theta_mean, L, log_diag).
+
+    L's diagonal is exp(0.5 * log_diag), the mean-field head's squared-scale
+    parameterization; the strictly-lower entries come from a zero-head MLP,
+    so the net starts as the mean-field posterior and learns correlations
+    only as the data demand them."""
+
+    def __init__(self, y_dim: int = 2, hidden: int = 20, n_layers: int = 3, theta_dim: int = 2,
+                 *, dtype=torch.float64, device=None, y_shift=None, y_scale=None):
+        super().__init__()
+        self.theta_dim = d = theta_dim
+        kw = dict(dtype=dtype, device=device)
+        self.theta_mean_net = MLP(y_dim, hidden, n_layers, d, **kw)
+        self.theta_sig_net = MLP(y_dim, hidden, n_layers, d, **kw)
+        self.theta_offdiag_net = MLP(y_dim, hidden, n_layers, d * (d - 1) // 2, zero_head=True,
+                                     **kw)
+        self._register_y_norm(y_shift, y_scale, dtype, device)
+        il, jl = torch.tril_indices(d, d, -1)
+        self.register_buffer("offdiag_index", (il * d + jl).to(device), persistent=False)
+
+    def forward(self, y):
+        y = self.normalize(y)
+        d = self.theta_dim
+        theta_mean = self.theta_mean_net(y)
+        log_diag = self.theta_sig_net(y)
+        off = self.theta_offdiag_net(y)
+        L_off = off.new_zeros((*off.shape[:-1], d * d))
+        L_off[..., self.offdiag_index] = off
+        L = L_off.reshape(*off.shape[:-1], d, d) + torch.diag_embed(torch.exp(0.5 * log_diag))
+        return theta_mean, L, log_diag
+
+
+def marginal_variance(L):
+    """Per-dim marginal variances diag(L L^T) of the full-covariance q."""
+    return torch.sum(L**2, dim=-1)
 
 
 class ZPredictiveNet(_PairNet):
@@ -105,16 +164,29 @@ def init_vi_networks(generator: torch.Generator, y_dim=2, theta_dim=2, z_dim=2, 
     return theta_net, z_net
 
 
+def _flax_named_mlps(module: nn.Module):
+    """(flax name, MLP) of each MLP child: its attribute name, or
+    ``<name>_<i>`` for the i-th MLP of a ``ModuleList`` (flax's name for a
+    list of submodules assigned in ``setup``)."""
+    for name, child in module.named_children():
+        if isinstance(child, nn.ModuleList):
+            for i, sub in enumerate(child):
+                yield f"{name}_{i}", sub
+        else:
+            yield name, child
+
+
 def load_flax_params(module: nn.Module, params) -> nn.Module:
     """Copy a flax parameter tree onto ``module`` in place and return it.
 
     ``params`` is the tree flax's ``init`` returns, as nested dicts of numpy
-    arrays: ``params["params"][net_name]["Dense_<i>"]["kernel" | "bias"]``.
-    Flax keeps a Dense kernel as (in, out); ``nn.Linear`` keeps (out, in).
+    arrays: ``params["params"][net_name]["Dense_<i>"]["kernel" | "bias"]``,
+    with the flow's couplings under ``couplings_<k>``. Flax keeps a Dense
+    kernel as (in, out); ``nn.Linear`` keeps (out, in).
     """
     tree = params["params"] if "params" in params else params
     with torch.no_grad():
-        for net_name, net in module.named_children():
+        for net_name, net in _flax_named_mlps(module):
             dense = tree[net_name]
             if len(dense) != len(net.layers):
                 raise ValueError(f"{net_name}: {len(dense)} flax layers, {len(net.layers)} here")

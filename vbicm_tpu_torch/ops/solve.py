@@ -1,6 +1,7 @@
 """Differentiable batched solvers for the affine operator K(c) = c0*A + c1*B
 (counterpart of ``vbicm_tpu/ops/solve.py``): the spectral pencil solver for
-dense models, and matrix-free preconditioned CG for refined meshes.
+dense models, the dense Cholesky and explicit-inverse solvers, and
+matrix-free preconditioned CG for refined meshes.
 
 Spectral solver (``make_spectral_affine_solver``).
 
@@ -38,6 +39,109 @@ import torch
 from .assembly import jacobi_diagonal
 from .element_kernel import ElementOperator
 from .spectral_kernel import spectral_apply_batched
+
+
+class DenseAffineSolver:
+    """``solve(coeffs (B, P), f (B, n)) -> u (B, n)`` for ``K(c) = sum_p c_p
+    parts_p`` by a per-sample factorization, with the adjoint backward pass;
+    built by :func:`make_dense_affine_solver`."""
+
+    def __init__(self, parts: torch.Tensor, factor_dtype, refine_iters: int, method: str):
+        if method == "auto":
+            method = "inverse" if factor_dtype is not None else "cholesky"
+        if method not in ("cholesky", "inverse"):
+            raise ValueError(f"unknown dense method {method!r}")
+        self.parts = parts
+        self.parts_f = parts if factor_dtype is None else parts.to(factor_dtype)
+        self.refine_iters = int(refine_iters)
+        self.method = method
+
+    def affine_matvec(self, coeffs, x):
+        """``sum_p c_p (parts_p x)`` per sample in x's dtype, through the
+        parts (no (B, n, n) matrix in that dtype)."""
+        px = torch.einsum("pij,bj->pbi", self.parts.to(x.dtype), x)
+        c = coeffs.to(x.dtype)
+        return sum(c[:, p, None] * px[p] for p in range(px.shape[0]))
+
+    def factor(self, coeffs):
+        """K(c) built in the factor dtype and factored: its lower Cholesky
+        factor, or K^-1 formed from it (one n-column triangular solve pair).
+        ``cholesky_ex`` does not read its status back (no host sync); a
+        matrix that is not positive definite gives NaN, as ``cho_factor``."""
+        pf = self.parts_f
+        c = coeffs.to(pf.dtype)
+        K = sum(c[:, p, None, None] * pf[p] for p in range(pf.shape[0]))
+        L, _ = torch.linalg.cholesky_ex(K)
+        if self.method == "inverse":
+            eye = torch.eye(K.shape[-1], dtype=K.dtype, device=K.device)
+            return torch.cholesky_solve(eye.expand_as(K), L)
+        return L
+
+    def _apply(self, op, b):
+        if self.method == "inverse":
+            return (op @ b[..., None])[..., 0]
+        return torch.cholesky_solve(b[..., None], op)[..., 0]
+
+    def solve_refined(self, op, coeffs, b):
+        """K(c)^-1 b in b's dtype: the factor's solve, then ``refine_iters``
+        corrections from residuals taken through the parts in b's dtype."""
+        fdt = op.dtype
+        x = self._apply(op, b.to(fdt)).to(b.dtype)
+        for _ in range(self.refine_iters):
+            r = b - self.affine_matvec(coeffs, x)
+            x = x + self._apply(op, r.to(fdt)).to(b.dtype)
+        return x
+
+    def __call__(self, coeffs, f):
+        return _DenseSolve.apply(coeffs, f, self)
+
+
+class _DenseSolve(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, coeffs, f, solver):
+        op = solver.factor(coeffs)
+        u = solver.solve_refined(op, coeffs, f)
+        ctx.save_for_backward(coeffs, u)
+        ctx.solver, ctx.op = solver, op
+        return u
+
+    @staticmethod
+    def backward(ctx, ubar):
+        coeffs, u = ctx.saved_tensors
+        solver = ctx.solver
+        if torch.is_grad_enabled():
+            # create_graph: the adjoint solve through the solve itself, so
+            # that the backward pass can be differentiated (u is tracked)
+            w = _DenseSolve.apply(coeffs, ubar, solver)
+        else:
+            w = solver.solve_refined(ctx.op, coeffs, ubar)
+        cbar = None
+        if ctx.needs_input_grad[0]:
+            # cbar_p = -w^T (parts_p u), per sample
+            pu = torch.einsum("pij,bj->bpi", solver.parts.to(u.dtype), u)
+            cbar = -torch.einsum("bpi,bi->bp", pu, w).to(coeffs.dtype)
+        return cbar, w, None
+
+
+def make_dense_affine_solver(parts, *, factor_dtype=None, refine_iters: int = 0,
+                             method: str = "auto"):
+    """Differentiable batched solver for ``(sum_p c_p parts_p) u = f`` by a
+    per-sample factorization (counterpart of the JAX package's
+    ``make_dense_affine_solver``).
+
+    parts: (P, n, n) symmetric positive-definite basis on the device the
+    solves run on. Returns ``solve(coeffs (B, P), f (B, n)) -> u (B, n)``.
+    ``method``: "cholesky" (every apply two triangular solves), "inverse"
+    (K^-1 formed once a factorization, every apply a matvec) or "auto"
+    ("inverse" with ``factor_dtype``, else "cholesky"). K(c) is built
+    directly in ``factor_dtype``; ``refine_iters`` refinements with
+    residuals through the parts in the right-hand side's dtype bring the
+    answer back. The backward pass is the same refined solve applied to the
+    cotangent, w, and ``cbar_p = -w^T (parts_p u)``. The factorization and
+    triangular solves are ``torch.linalg``'s (the JAX package's are XLA's,
+    not a Pallas kernel).
+    """
+    return DenseAffineSolver(parts, factor_dtype, refine_iters, method)
 
 
 class SpectralAffineSolver:

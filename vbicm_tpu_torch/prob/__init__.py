@@ -1,3 +1,11 @@
-from .datagen import MeasurementDataset, generate_data_fem, standardize
+from .datagen import (
+    MeasurementDataset,
+    cached_dataset,
+    generate_data_fem,
+    load_dataset,
+    save_dataset,
+    standardize,
+)
 
-__all__ = ["MeasurementDataset", "generate_data_fem", "standardize"]
+__all__ = ["MeasurementDataset", "cached_dataset", "generate_data_fem", "load_dataset", "save_dataset",
+           "standardize"]

@@ -25,7 +25,11 @@ from .ops.multigrid import (
     make_grid_transfer_nd,
     make_two_level_preconditioner,
 )
-from .ops.solve import make_matfree_affine_solver, make_spectral_affine_solver
+from .ops.solve import (
+    make_dense_affine_solver,
+    make_matfree_affine_solver,
+    make_spectral_affine_solver,
+)
 from .ops.spectral_kernel import spectral_apply_batched
 from .ops.stencil import make_stencil_affine_matvec
 from .ops.stencil3d import make_stencil_affine_matvec_3d
@@ -45,15 +49,11 @@ class FemSolution:
 _METHODS = ("spectral", "cholesky", "inverse")
 
 
-def _check_method(model: FemModel, method: str):
-    """The JAX package's dense ``method``: "spectral" is ported; "cholesky"
-    and "inverse" raise on dense models, and are ignored on matrix-free ones
-    (as there); any other value raises."""
+def _check_method(method: str):
+    """The JAX package's dense ``method``; ignored on matrix-free models (as
+    there); any other value raises."""
     if method not in _METHODS:
         raise ValueError(f"unknown method {method!r}; expected one of {_METHODS}")
-    if model.dense and method != "spectral":
-        raise NotImplementedError(f"method={method!r} (ops/solve.py::make_dense_affine_solver) "
-                                  "is not ported; ROADMAP Queue 1 item 2")
 
 
 def make_solver(model: FemModel, *, method: str = "spectral", factor_dtype=None,
@@ -62,26 +62,29 @@ def make_solver(model: FemModel, *, method: str = "spectral", factor_dtype=None,
     """Build ``solve_free(c0 (B,), c1 (B,)) -> u (B, ndof)`` for this model.
 
     Dense models: ``method="spectral"``, the spectral pencil (``ops.solve``),
-    the JAX package's default; ``factor_dtype`` selects the precision of its
-    apply. The JAX package's "cholesky" and "inverse" raise
-    ``NotImplementedError`` here. Matrix-free models: Jacobi-PCG on the
+    the JAX package's default, where ``factor_dtype`` selects the precision
+    of its apply; or ``"cholesky"`` / ``"inverse"``, a factorization a
+    sample (``ops.solve.make_dense_affine_solver``), K(c) built in
+    ``factor_dtype``. Matrix-free models: Jacobi-PCG on the
     element operator (the element kernel on the GPU,
     ``ops.element_kernel``) at ``cg_tol`` and ``cg_maxiter``, whatever the
     method; ``factor_dtype`` is the CG's dtype, and ``refine_iters``
     refinements with float64 residuals bring the answer back to the model's.
     ``solve_free.solver`` is then the underlying
     ``ops.solve.MatfreeAffineSolver``."""
-    _check_method(model, method)
+    _check_method(method)
     if not model.dense:
         base = make_matfree_affine_solver(
             torch.stack([model.ke_lam, model.ke_mu]), model.lm, model.free_mask, model.ndof,
             tol=cg_tol, maxiter=cg_maxiter, cg_dtype=factor_dtype, refine_iters=refine_iters)
         return _matfree_solve_free(model, base)
-    base = make_spectral_affine_solver(
-        torch.stack([model.k_lam_ff, model.k_mu_ff]),
-        apply_dtype=factor_dtype,
-        refine_iters=refine_iters,
-    )
+    parts = torch.stack([model.k_lam_ff, model.k_mu_ff])
+    if method == "spectral":
+        base = make_spectral_affine_solver(parts, apply_dtype=factor_dtype,
+                                           refine_iters=refine_iters)
+    else:
+        base = make_dense_affine_solver(parts, factor_dtype=factor_dtype,
+                                        refine_iters=refine_iters, method=method)
     embed = _make_free_embed(model)
 
     def solve_free(c0, c1):

@@ -1,5 +1,6 @@
 from .elbo import (
     make_loss_step1,
+    make_loss_step1_flow,
     make_loss_step1_fullcov,
     make_loss_step2,
     moment_match_loss,
@@ -28,6 +29,7 @@ __all__ = [
     "term3_fullcov",
     "moment_match_loss",
     "make_loss_step1",
+    "make_loss_step1_flow",
     "make_loss_step1_fullcov",
     "make_loss_step2",
     "refine_posterior",

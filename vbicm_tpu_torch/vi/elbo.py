@@ -1,6 +1,7 @@
 """ELBO terms for the two-step amortized VI scheme (counterpart of
-``vbicm_tpu/vi/elbo.py``: the mean-field posterior, and the full-covariance
-step-1 loss that per-observation refinement uses).
+``vbicm_tpu/vi/elbo.py``) for the three posterior families: mean-field,
+full-covariance (q = N(mu, L L^T)) and the normalizing flow
+(``models.flow``).
 
   step 1, q(theta|y):        loss = term1 - term2 - term3
   step 2, p(z|y) lognormal:  loss = alpha*(term4 - term5) + moment_match_loss
@@ -140,6 +141,34 @@ def make_loss_step1_fullcov(batch_f, e_data, sig_e):
     return loss
 
 
+# ---------------------------------------------------------------------------
+# Normalizing-flow posterior (models.flow.ThetaPosteriorFlowNet)
+# ---------------------------------------------------------------------------
+
+
+def make_loss_step1_flow(batch_f, sig_e):
+    """``loss(y, (theta, logq)[, e])``, the step-1 loss of the flow
+    posterior: theta (B, ne, d) and logq (B, ne) from the flow net, which
+    takes the base draws itself (``e`` is accepted and unused).
+
+    loss = E_q[log q(theta|y) - log p(y|theta) - log p(theta)], the objective
+    of term1 - term2 - term3 with every term a per-sample Monte-Carlo
+    average. Per-observation pairing only.
+    """
+
+    def loss(y, outputs, e=None):
+        theta, logq = outputs
+        B, ne, d = theta.shape
+        d_y = y.shape[-1]
+        f = batch_f(theta.reshape(-1, d)).reshape(B, ne, d_y)
+        loglik = -0.5 * d_y * math.log(2.0 * math.pi * sig_e) - 0.5 / sig_e * torch.sum(
+            (y[:, None, :] - f) ** 2, dim=-1)
+        logprior = -0.5 * d * math.log(2.0 * math.pi) - 0.5 * torch.sum(theta**2, dim=-1)
+        return torch.mean(logq - loglik - logprior)
+
+    return loss
+
+
 def term4(z_mean, log_z_sig):
     """Lognormal-entropy term."""
     d = z_mean.shape[-1]
@@ -147,13 +176,21 @@ def term4(z_mean, log_z_sig):
     return torch.mean(loss) - 0.5 * d * math.log(2.0 * math.pi) - 0.5 * d
 
 
-def term5(theta_mean, theta_sig, z_mean, z_sig, e_data, batch_h, sig_eta, pairing="cross"):
+def term5(theta_mean, theta_sig, z_mean, z_sig, e_data, batch_h, sig_eta, pairing="cross",
+          fullcov=False, theta_data=None):
     """E[log p(z|theta)] via lognormal moment identities.
 
     batch_h: thetas (N, d_theta) -> h (N, d_z) (second output of fh).
+    ``fullcov=True``: ``theta_sig`` is the (B, d, d) Cholesky factor.
+    ``theta_data`` (B*ne, d), already drawn, replaces the draws (the flow).
     """
     d_z = z_mean.shape[-1]
-    h_data = batch_h(reparameterize(theta_mean, theta_sig, e_data))  # (B*ne, d_z)
+    if theta_data is None:
+        if fullcov:
+            theta_data = reparameterize_fullcov(theta_mean, theta_sig, e_data)
+        else:
+            theta_data = reparameterize(theta_mean, theta_sig, e_data)
+    h_data = batch_h(theta_data)  # (B*ne, d_z)
     zm = z_mean[:, None, :]
     zs = z_sig[:, None, :]
     l1 = -0.5 / sig_eta * torch.sum(torch.exp(2.0 * zm + 2.0 * zs), dim=-1)  # (B, 1)
@@ -170,22 +207,35 @@ def moment_match_loss(z_mean, z_sig, logz_mean_post, logz_sig_post):
     )
 
 
-def make_loss_step2(batch_h, e_data, sig_eta, alpha, pairing="cross"):
+def make_loss_step2(batch_h, e_data, sig_eta, alpha, pairing="cross", fullcov=False,
+                    flow=False):
     """``loss((y, logz_mean_post, logz_sig_post), outputs[, e])`` for step 2,
     outputs = (theta_mean, theta_sig, z_mean, z_sig, log_z_sig); ``e``
-    overrides the fixed seeds for one evaluation."""
+    overrides the fixed seeds for one evaluation. ``fullcov=True``: the
+    ``theta_sig`` slot is the posterior's (B, d, d) Cholesky factor.
+    ``flow=True``: outputs = (theta_data, z_mean, z_sig, log_z_sig) with the
+    flow's (B*ne, d) samples, drawn in the net; per-observation pairing
+    only."""
+    if flow and pairing != "per_sample":
+        raise ValueError('flow step-2 loss requires pairing="per_sample"')
 
     def loss(batch, outputs, e=None):
         e = e_data if e is None else e
         _, logz_mean_post, logz_sig_post = batch
-        theta_mean, theta_sig, z_mean, z_sig, log_z_sig = outputs
+        if flow:
+            theta_data, z_mean, z_sig, log_z_sig = outputs
+            theta_mean = theta_sig = None
+        else:
+            theta_mean, theta_sig, z_mean, z_sig, log_z_sig = outputs
+            theta_data = None
         mm = moment_match_loss(z_mean, z_sig, logz_mean_post, logz_sig_post)
         if alpha == 0.0:
             # terms 4/5 can overflow where h spans decades; 0 * inf would
             # poison the pure moment-matching loss
             return mm
         t4 = term4(z_mean, log_z_sig)
-        t5 = term5(theta_mean, theta_sig, z_mean, z_sig, e, batch_h, sig_eta, pairing)
+        t5 = term5(theta_mean, theta_sig, z_mean, z_sig, e, batch_h, sig_eta, pairing,
+                   fullcov=fullcov, theta_data=theta_data)
         return (t4 - t5) * alpha + mm
 
     return loss
