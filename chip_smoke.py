@@ -1,7 +1,7 @@
 """On-card smoke test of the PyTorch port (``vbicm_tpu_torch``) on one GPU.
 
 Builds the CUDA kernels from the sources in this checkout and holds each
-against its plain PyTorch version. Then seven paths, each driven through the
+against its plain PyTorch version. Then eight paths, each driven through the
 entry points a user calls, with the kernels' launch counts set to 0 just
 before and read just after:
 
@@ -59,7 +59,19 @@ before and read just after:
   steps/s beside the mean field's), exact resume from the trainer's
   checkpoints against the uninterrupted runs (printed bitwise, gated at
   1e-12), gradient clipping with resampled base draws, and the dataset's
-  .npz round trip.
+  .npz round trip;
+- the random-field family (phases 41-47, ``field_path``), each phase with
+  the spectral count zeroed before it and its wall time: the spectral
+  kernel against its plain version at the 3-D field path's coarse size
+  (n = 216), the 80x40 field solve of 256 prior fields
+  (examples/train_randomfield_torch.py's operator: grid mode, the
+  mean-field two-level cycle, float32 CG + one float64 refinement) against
+  float64 two-level and Jacobi solves, lm mode against grid mode, two calls
+  bitwise equal, CG iterations and the field matvec's time; the field
+  adjoint against central differences and the field Hessian against the
+  CPU run; the 2-D and 3-D field trainers at the examples' widths (n_data
+  256, 2 + 2 epochs); Laplace and refinement through the 10x5 field fh, and
+  the 10x5 field ROM, to the JAX tests' gates.
 
 Phase 1 fails if a spectral, stencil, quad4 element or banded kernel spills
 registers; phases 2, 8, 13, 18 and 25 hold two calls of a kernel bitwise
@@ -168,6 +180,10 @@ REFINE_BATCH = 16
 # synchronizing CUDA calls a sampler run may make (its draws' copies in and
 # its result's copies out), against the thousands of steps in its loop
 SAMPLER_SYNCS = 20
+# the 3-D field path's coarse solve: the 8x2x2 box's 216 free dofs (B = 256
+# in the step, 8 in the HMC and refinement checks, 300 a ragged batch)
+FIELD_COARSE_N = 216
+FIELD_COARSE_BATCHES = (1, 8, 256, 300)
 
 
 def fail(msg):
@@ -607,12 +623,17 @@ def main():
     study = study_path(dev, card)
     evals = eval_path(dev, card, box)
     fams = trainer_path(dev, card, model, ds, thetas, fh64, steps_per_s)
+    field = field_path(dev, card)
 
     times[BOX_COARSE_SHAPE, torch.float32] = box["spectral_ms"][torch.float32]
     times[BOX_COARSE_SHAPE, torch.float64] = box["spectral_ms"][torch.float64]
+    field_shape = (256, FIELD_COARSE_N)
+    for dtype in (torch.float32, torch.float64):
+        times[field_shape, dtype] = field["spectral_ms"][dtype]
     spectral = {}  # the f32 record's fields by shape (device time), and the f64 times
     for shape, tag in ((MAIN_SHAPE, ""), (COARSE_SHAPE, "_coarse_256x1680"),
-                       (BOX_COARSE_SHAPE, "_coarse_256x1200")):
+                       (BOX_COARSE_SHAPE, "_coarse_256x1200"),
+                       (field_shape, f"_coarse_256x{FIELD_COARSE_N}")):
         for dtype, dt in ((torch.float32, ""), (torch.float64, "_f64")):
             t = times[shape, dtype]
             spectral.update({f"ms{dt}{tag}": t["device"][0], f"plain_ms{dt}{tag}": t["device"][1],
@@ -632,7 +653,7 @@ def main():
         "launches": (launches + scaled["spectral_launches"] + box["spectral_launches"]
                      + elem["spectral_launches"] + evals["eval_20x10"]
                      + evals["refine_32x8x8"][0] + fams["fullcov"][0] + fams["flow"][0]
-                     + fams["resume"] + fams["clip"]),
+                     + fams["resume"] + fams["clip"] + sum(field["launches"].values())),
         "launches_by_path": {"cooks_20x10": launches,
                              "scaled_160x80": scaled["spectral_launches"],
                              "box3d_32x8x8": box["spectral_launches"],
@@ -642,8 +663,10 @@ def main():
                              "fullcov_20x10": fams["fullcov"][0],
                              "flow_20x10": fams["flow"][0],
                              "resume_20x10": fams["resume"],
-                             "clip_resample_20x10": fams["clip"]},
+                             "clip_resample_20x10": fams["clip"],
+                             **field["launches"]},
         "max_abs_err": main_abs_err,
+        f"max_abs_err_256x{FIELD_COARSE_N}": field["spectral_abs_err_216"],
         **{k: spectral[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
         "library_ms": None,  # no one PyTorch call computes V diag(1/d) V^T b per sample
         "tc_bound_ms": spectral["tc_bound_ms"],  # 3xTF32 on tf32_tc (f64: DMMA on fp64_tc)
@@ -938,7 +961,6 @@ def element_path(dev, card):
     """Phases 18-23: the element path (Jacobi-PCG, the element-path
     two-level solver and the reduced-basis trainer) and its kernel."""
     import dataclasses
-    import importlib.util
 
     from vbicm_tpu_torch import mesh as meshes
     from vbicm_tpu_torch.config import ProblemConfig, SectionCard
@@ -1142,10 +1164,7 @@ def element_path(dev, card):
     # 22. the main path: examples/train_scaled_rom_torch.py -- the certified
     #     reduced basis at 160x80, the two-step trainer through it, and the
     #     full-order spot check through the element-path two-level solver
-    spec = importlib.util.spec_from_file_location(
-        "train_scaled_rom_torch", os.path.join(ROOT, "examples", "train_scaled_rom_torch.py"))
-    example = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(example)
+    example = load_example("train_scaled_rom_torch")
     rom_model, rom_cfg = example.build(nx, ny, dev)
     if (rom_cfg.node_id, rom_cfg.ele_id, list(rom_cfg.nipt_id)) != \
             (probe["node_id"], probe["ele_id"], probe["nipt_id"]):
@@ -1221,7 +1240,6 @@ def element_path(dev, card):
 def study_path(dev, card):
     """Phases 24-27: the stencil-kernel study (kernels #3, #6 and #7, and
     examples/stencil_kernel_study_torch.py at 160x80, B = 256)."""
-    import importlib.util
     import tempfile
 
     from vbicm_tpu_torch.mesh import cooks_membrane_mesh
@@ -1427,10 +1445,7 @@ def study_path(dev, card):
 
     # 27. the main path: examples/stencil_kernel_study_torch.py at 160x80,
     #     B = 256, into a temporary results directory
-    spec = importlib.util.spec_from_file_location(
-        "stencil_kernel_study_torch", os.path.join(ROOT, "examples", "stencil_kernel_study_torch.py"))
-    example = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(example)
+    example = load_example("stencil_kernel_study_torch")
     counters = (stencil_affine_matvec, "launches"), (stencil_affine_matvec, "rows_launches"), \
         (stencil_affine_matvec_mxu, "launches"), (fma_peak_probe, "launches")
     saved = [getattr(f, k) for f, k in counters]
@@ -2250,6 +2265,397 @@ def trainer_path(dev, card, model, ds, thetas, fh64, mf_steps_per_s):
         fail(f"dataset .npz round trip: {unequal} differ")
     print(f"[40 dataset] ok: phase 6's {ds.n_sam}-point dataset through .npz bitwise equal "
           f"({len(fields)} fields); {dt:.2f} s", flush=True)
+    return out
+
+
+def load_example(name):
+    """An example script under examples/ as a module (its ``main`` not run)."""
+    import importlib.util
+
+    examples = os.path.join(ROOT, "examples")
+    if examples not in sys.path:  # the 3-D field example imports the 2-D one
+        sys.path.insert(0, examples)
+    spec = importlib.util.spec_from_file_location(name, os.path.join(examples, name + ".py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def cg_iters(solver):
+    """(mean, max) CG iterations a lane of each CG run of the last solve."""
+    return [(round(float(it.double().mean()), 2), int(it.max())) for it in solver.last_cg_iters]
+
+
+def field_path(dev, card):
+    """Phases 41-47: the random-field family, each phase with the spectral
+    launch count zeroed before it and its wall time: the spectral kernel at
+    the 3-D field path's coarse size (n = 216) against its plain version;
+    the 80x40 field solve (examples/train_randomfield_torch.py's operator:
+    grid mode, the mean-field two-level cycle, float32 CG at tol 3e-3 plus
+    one float64 refinement) against float64 solves, its CG iterations and
+    the field matvec's time; the field adjoint against finite differences
+    and the field log-posterior's Hessian against the CPU run; the 2-D and
+    3-D field trainers at the examples' widths (n_data 256, 2 + 2 epochs);
+    Laplace and refinement through the 10x5 field fh to tests/test_laplace.py
+    and tests/test_refine.py's gates; the field ROM at 10x5 to
+    tests/test_randomfield.py's gates. Returns the spectral launch counts by
+    path and #1's (256, 216) times."""
+    import warnings
+
+    from vbicm_tpu_torch.config import ProblemConfig
+    from vbicm_tpu_torch.eval import laplace_posterior, make_fem_logpost
+    from vbicm_tpu_torch.mesh import cooks_membrane_mesh
+    from vbicm_tpu_torch.model import build_fem_model
+    from vbicm_tpu_torch.ops.spectral_kernel import (
+        spectral_apply_batched,
+        spectral_apply_reference,
+    )
+    from vbicm_tpu_torch.prob import randomfield as rf
+    from vbicm_tpu_torch.rom.field import build_reduced_basis_field, make_fh_fun_field_rom
+    from vbicm_tpu_torch.utils.timing import Timer
+    from vbicm_tpu_torch.vi.refine import refine_posterior
+
+    def phase_start():
+        torch.cuda.synchronize()
+        spectral_apply_batched.launches = 0
+        return time.perf_counter()
+
+    def phase_end(t0):
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, spectral_apply_batched.launches
+
+    def solves_per_s(fh, thetas, grad, reps=3):
+        """Field solves a second of ``fh`` on ``thetas`` (host clock, the card
+        synchronised): forward only, or forward and the theta-gradient."""
+        def call():
+            if not grad:
+                with torch.no_grad():
+                    fh(thetas)
+                return
+            th = thetas.clone().requires_grad_(True)
+            y, h = fh(th)
+            torch.autograd.grad((y**2).sum() + h.sum(), th)
+
+        call()
+        with Timer(torch.device("cuda", 0)) as t:
+            for _ in range(reps):
+                call()
+        return thetas.shape[0] * reps / t.seconds
+
+    out = {"launches": {}}
+    ex2 = load_example("train_randomfield_torch")
+    ex3 = load_example("train_randomfield_3d_torch")
+
+    # 41. #1 against its plain version at the 3-D field path's coarse size
+    #     (216 free dofs of the 8x2x2 box: not a multiple of 8, 16 or 32),
+    #     two calls bitwise equal; device time and bound at (256, 216)
+    t0 = phase_start()
+    worst = {}
+    for dtype in (torch.float32, torch.float64):
+        for B in FIELD_COARSE_BATCHES:
+            V, g, c, b = pencil_problem(B, FIELD_COARSE_N, seed=B + 41, dtype=dtype, device=dev)
+            x, a = spectral_apply_batched(V, g, c, b, return_coords=True)
+            x2, a2 = spectral_apply_batched(V, g, c, b, return_coords=True)
+            xr, ar = spectral_apply_reference(V, g, c, b, return_coords=True)
+            torch.cuda.synchronize()
+            err = max(rel_err(x, xr), rel_err(a, ar))
+            if not err <= REL_TOL[dtype]:
+                fail(f"spectral kernel vs plain at B={B} n={FIELD_COARSE_N} {dtype}: rel err {err}")
+            if not (torch.equal(x, x2) and torch.equal(a, a2)):
+                fail(f"spectral kernel at B={B} n={FIELD_COARSE_N} {dtype}: two calls differ")
+            worst[dtype] = max(worst.get(dtype, 0.0), err)
+            if dtype == torch.float32 and B == 256:
+                out["spectral_abs_err_216"] = float((x - xr).abs().max())
+    out["spectral_ms"] = {dt: spectral_times((256, FIELD_COARSE_N), dt, dev, card, 41, 100)
+                          for dt in (torch.float32, torch.float64)}
+    dt_s, _ = phase_end(t0)
+    print(f"[41 spectral 216] ok: max rel err vs plain f32 {worst[torch.float32]:.3e} (tol 2e-5), "
+          f"f64 {worst[torch.float64]:.3e} (tol 1e-12) at B in {FIELD_COARSE_BATCHES} x n "
+          f"{FIELD_COARSE_N}, x and a, two calls bitwise equal; {dt_s:.2f} s", flush=True)
+
+    # 42. the 80x40 field solve of 256 prior fields: the f64 mean-field
+    #     two-level solve against f64 Jacobi; the trainer's f32 + 1
+    #     refinement against f64; lm against grid mode; two calls bitwise
+    #     equal; CG iterations; the field matvec's time
+    t0 = phase_start()
+    model, kl, cfg, probes, fh = ex2.build(80, 40, device=dev)
+    coarse = build_fem_model(cooks_membrane_mesh(20, 10), device=dev, dense=True)
+    prec = rf.make_mean_field_preconditioner(coarse, 20, 10, 4, model.free_mask, nu=0.3,
+                                             E0=float(np.exp(kl.mean_log)))
+    kw = dict(probe_nodes=probes)
+    fh_p = rf.make_fh_fun_field(model, kl, cfg, tol=1e-10, preconditioner=prec, grid=(80, 40),
+                                **kw)
+    # lm against grid mode at tol 1e-13: their sums run in other orders, so
+    # they agree to the CG's tolerance, not to the last bit
+    fh_a = rf.make_fh_fun_field(model, kl, cfg, tol=1e-13, preconditioner=prec, grid=(80, 40),
+                                **kw)
+    fh_a_lm = rf.make_fh_fun_field(model, kl, cfg, tol=1e-13, preconditioner=prec, **kw)
+    fh_j = rf.make_fh_fun_field(model, kl, cfg, tol=1e-12, grid=(80, 40), **kw)
+    fh_lm = rf.make_fh_fun_field(model, kl, cfg, probe_nodes=probes, cg_dtype=torch.float32,
+                                 refine_iters=1, tol=3e-3, preconditioner=prec)
+    thetas = torch.randn((256, kl.n_modes), generator=torch.Generator().manual_seed(42),
+                         dtype=torch.float64).to(dev)
+    res, iters = {}, {}
+    with torch.no_grad():
+        for name, f in (("trainer", fh), ("two-level f64", fh_p), ("two-level f64 1e-13", fh_a),
+                        ("two-level f64 1e-13 lm", fh_a_lm), ("Jacobi f64", fh_j),
+                        ("trainer lm", fh_lm)):
+            res[name] = f(thetas)
+            iters[name] = cg_iters(f.solver)
+        again = {name: f(thetas) for name, f in (("trainer", fh), ("trainer lm", fh_lm))}
+    torch.cuda.synchronize()
+    errs = {"two-level f64 vs Jacobi f64": (res["two-level f64"], res["Jacobi f64"], 1e-9),
+            "trainer (f32 + 1 refinement) vs f64": (res["trainer"], res["two-level f64"], 1e-5),
+            "lm vs grid mode (f64, tol 1e-13)": (res["two-level f64 1e-13 lm"],
+                                                 res["two-level f64 1e-13"], 1e-12)}
+    text = []
+    for key, ((y, h), (yr, hr), tol) in errs.items():
+        err = max(rel_err(y, yr), rel_err(h, hr))
+        if not err <= tol:
+            fail(f"80x40 field solve, {key}: rel err (y, h) {err} > {tol}")
+        text.append(f"{key} {err:.2e} (tol {tol:g})")
+    for name in again:
+        if not all(torch.equal(a, b) for a, b in zip(again[name], res[name])):
+            fail(f"80x40 field solve, {name}: two calls are not bitwise equal")
+    # the field matvec (gather, element products, E-scaling, scatter) at the
+    # trainer's CG dtype, grid and lm mode; its share of a trainer solve
+    E32 = rf.field_from_theta(kl, thetas, torch.float32)
+    x32 = torch.randn((256, model.ndof), generator=torch.Generator().manual_seed(43)).to(dev)
+    mv = {}
+    for mode, f in (("grid", fh), ("lm", fh_lm)):
+        s = f.solver
+        with torch.no_grad():
+            mv[mode] = time_ms(lambda: s.matvec(s.ke_cg, s.mask_cg, E32, x32), warmup=5, reps=50)
+    with torch.no_grad():
+        solve_ms = time_ms(lambda: fh(thetas), warmup=2, reps=10)
+    loops = sum(-(-m // 8) * 8 for _, m in iters["trainer"])  # pcg checks every 8 iterations
+    share = mv["grid"] * loops / solve_ms
+    out["field_matvec_ms"] = mv
+    out["field_solve_ms"] = solve_ms
+    out["field_matvec_share"] = share
+    dt_s, n1 = phase_end(t0)
+    out["launches"]["field_80x40_solve"] = n1
+    if n1 <= 0:
+        fail("the 80x40 field solve never launched the spectral kernel")
+    print(f"[42 field solve] ok: 80x40 ({model.ndof} dofs), 256 prior fields of the 16-mode KL: "
+          f"{'; '.join(text)}; the trainer's solve and its lm-mode twin two calls bitwise "
+          f"equal; CG iterations (mean, max) a run: "
+          f"{'; '.join(f'{k} {v}' for k, v in iters.items())}; field matvec (B 256, f32) "
+          f"{mv['grid']:.4f} ms grid mode, {mv['lm']:.4f} ms lm mode (CUDA events); a trainer "
+          f"forward solve {solve_ms:.3f} ms, so {loops} matvecs ~{100 * share:.1f} % of it; "
+          f"spectral launches {n1}; {dt_s:.2f} s on {card}", flush=True)
+
+    # 43. the field adjoint against fourth-order central differences (f64
+    #     two-level, tol 1e-13, 8 fields, 3 directions), and the field log-posterior's
+    #     Hessian (10x5, 4 modes, the double backward) against the CPU run
+    t0 = phase_start()
+    th8 = thetas[:8].clone()
+    wts = torch.randn((8, cfg.y_dim), generator=torch.Generator().manual_seed(44),
+                      dtype=torch.float64).to(dev)
+
+    def loss(th):
+        y, h = fh_a(th)
+        return (wts * y).sum() + h.sum()
+
+    th = th8.clone().requires_grad_(True)
+    (g,) = torch.autograd.grad(loss(th), th)
+    fd_errs = []
+    for k in range(3):
+        v = torch.randn(th8.shape, generator=torch.Generator().manual_seed(45 + k),
+                        dtype=torch.float64).to(dev)
+        eps = 1e-4  # the fourth-order central stencil: truncation ~eps^4
+        with torch.no_grad():
+            fd = (8 * (loss(th8 + eps * v) - loss(th8 - eps * v))
+                  - (loss(th8 + 2 * eps * v) - loss(th8 - 2 * eps * v))) / (12 * eps)
+        fd_errs.append(abs(float(fd) - float((g * v).sum())) / abs(float(fd)))
+    if not max(fd_errs) <= 1e-6:
+        fail(f"field adjoint vs central differences: rel err {fd_errs} > 1e-6")
+    hess_err, small = [], []
+    for d in (torch.device("cpu"), dev):
+        m10 = build_fem_model(cooks_membrane_mesh(10, 5), device=d)
+        kl10 = rf.build_kl_expansion(m10, n_modes=4, corr_len=15.0, sigma=0.3)
+        cfg10 = ProblemConfig(theta_dim=4, y_dim=16, ele_id=5, sig_e=1e-3)
+        f10 = rf.make_fh_fun_field(m10, kl10, cfg10, probe_nodes=tuple(range(8, 55, 6)),
+                                   tol=1e-12)
+        t_true = torch.tensor([0.7, -0.4, 0.2, 0.9], dtype=torch.float64, device=d)
+        with torch.no_grad():
+            y_obs = f10(t_true[None])[0][0]
+        lp = make_fem_logpost(f10, y_obs, cfg10.sig_e)
+        small.append((m10, kl10, cfg10, f10, t_true, y_obs, lp))
+        hess_err.append([torch.autograd.functional.hessian(lambda x: lp(x[None])[0],
+                                                           t.to(d)).cpu()
+                         for t in (t_true + 0.1, torch.tensor([0.2, 0.1, -0.3, 0.5],
+                                                              dtype=torch.float64))])
+    herr = max(rel_err(a, b) for a, b in zip(hess_err[1], hess_err[0]))
+    if not herr <= 1e-8:
+        fail(f"field log-posterior Hessian, card vs CPU: rel err {herr} > 1e-8")
+    dt_s, _ = phase_end(t0)
+    print(f"[43 field adjoint] ok: 80x40 f64 two-level, 8 fields: theta-gradient vs central "
+          f"differences (fourth order, eps 1e-4) rel err "
+          f"{', '.join(f'{e:.2e}' for e in fd_errs)} (tol 1e-6); "
+          f"10x5 field log-posterior Hessian (double backward) card vs CPU {herr:.2e} (tol 1e-8); "
+          f"{dt_s:.2f} s", flush=True)
+
+    # 44. the 2-D field trainer at the example's width (16 modes, 50 probes,
+    #     64-neuron heads, full covariance, per-sample pairing, resample_e,
+    #     clip 1e5), n_data 256, 2 + 2 epochs; field solves/s at B = 256
+    t0 = phase_start()
+    trainer, res2, _, s2 = ex2.train(fh, cfg, n_data=256, epochs1=2, epochs2=2,
+                                     posterior="fullcov", seed=0, device=dev, verbose=False)
+    dt_s, n1 = phase_end(t0)
+    out["launches"]["field_train_80x40"] = n1
+    losses = np.concatenate([res2.hist_step1, res2.hist_step2])
+    if not np.all(np.isfinite(losses)) or n1 <= 0:
+        fail(f"2-D field trainer: losses {losses}, spectral launches {n1}")
+    fwd = solves_per_s(fh, thetas, grad=False)
+    grad = solves_per_s(fh, thetas, grad=True)
+    out["field_2d"] = dict(steps_per_s=s2["train_steps_per_sec"],
+                           step1_steady=s2.get("step1_steps_per_sec_steady"),
+                           solves_per_s=fwd, grad_solves_per_s=grad)
+    print(f"[44 field trainer 2-D] ok: step1 losses {res2.hist_step1.tolist()}, step2 "
+          f"{res2.hist_step2.tolist()}; spectral launches {n1}; train steps/s (2 + 2 epochs, "
+          f"first epochs included) {s2['train_steps_per_sec']:.3f}, step-1 steps/s (epoch 2) "
+          f"{s2.get('step1_steps_per_sec_steady', float('nan')):.3f}; field solves/s at B 256 "
+          f"forward {fwd:.1f}, with the theta-gradient {grad:.1f}; {dt_s:.2f} s on {card}",
+          flush=True)
+
+    # 45. the 3-D field solve (32x8x8, box3d two-level at ratio 4: an 8x2x2
+    #     coarse box, n = 216) against f64 Jacobi, then its trainer
+    t0 = phase_start()
+    model3, kl3, cfg3, probes3, fh3 = ex3.build(32, 8, 8, device=dev)
+    from vbicm_tpu_torch.config import SectionCard
+    from vbicm_tpu_torch.mesh import beam_hex8_mesh
+
+    coarse3 = build_fem_model(beam_hex8_mesh(8, 2, 2, lx=8.0), SectionCard(stype=4), device=dev,
+                              dense=True)
+    if coarse3.nfree != FIELD_COARSE_N:
+        fail(f"the 8x2x2 coarse box has {coarse3.nfree} free dofs, not {FIELD_COARSE_N}")
+    prec3 = rf.make_mean_field_preconditioner_box3d(coarse3, (8, 2, 2), 4, model3.free_mask,
+                                                    nu=0.3, E0=float(np.exp(kl3.mean_log)))
+    fh3_p = rf.make_fh_fun_field(model3, kl3, cfg3, probe_nodes=probes3, tol=1e-10,
+                                 preconditioner=prec3, grid=(32, 8, 8))
+    fh3_j = rf.make_fh_fun_field(model3, kl3, cfg3, probe_nodes=probes3, tol=1e-12,
+                                 grid=(32, 8, 8))
+    th3 = torch.randn((64, kl3.n_modes), generator=torch.Generator().manual_seed(45),
+                      dtype=torch.float64).to(dev)
+    with torch.no_grad():
+        r3 = {name: (f(th3), cg_iters(f.solver)) for name, f in
+              (("trainer", fh3), ("two-level f64", fh3_p), ("Jacobi f64", fh3_j))}
+    e_p = max(rel_err(a, b) for a, b in zip(r3["two-level f64"][0], r3["Jacobi f64"][0]))
+    e_t = max(rel_err(a, b) for a, b in zip(r3["trainer"][0], r3["Jacobi f64"][0]))
+    # the trainer's f32 CG at tol 3e-3 + one refinement is the JAX example's
+    # policy; on the CPU it is 3.4e-4 from f64 here (1.8e-7 in 2-D)
+    if not (e_p <= 1e-6 and e_t <= 1e-3):
+        fail(f"3-D field solve vs f64 Jacobi: two-level f64 {e_p} (tol 1e-6), trainer {e_t} "
+             "(tol 1e-3)")
+    _, n_solve = phase_end(t0)
+    spectral_apply_batched.launches = 0
+    trainer3, res3, _, s3 = ex3.field_example.train(fh3, cfg3, n_data=256, epochs1=2,
+                                                    epochs2=2, posterior="fullcov", seed=0,
+                                                    device=dev, verbose=False, chunk=256)
+    dt_s, n1 = phase_end(t0)
+    out["launches"]["field_3d_solve"] = n_solve
+    out["launches"]["field_train_32x8x8"] = n1
+    losses = np.concatenate([res3.hist_step1, res3.hist_step2])
+    if not np.all(np.isfinite(losses)) or n1 <= 0 or n_solve <= 0:
+        fail(f"3-D field trainer: losses {losses}, spectral launches {n_solve}, {n1}")
+    fwd3 = solves_per_s(fh3, th3, grad=False)
+    out["field_3d"] = dict(steps_per_s=s3["train_steps_per_sec"],
+                           step1_steady=s3.get("step1_steps_per_sec_steady"), solves_per_s=fwd3)
+    print(f"[45 field 3-D] ok: 32x8x8 ({model3.ndof} dofs), 64 prior fields of the 12-mode KL: "
+          f"two-level f64 vs Jacobi f64 {e_p:.2e} (tol 1e-6), the trainer's f32 + 1 refinement "
+          f"{e_t:.2e} (tol 1e-3); CG iterations (mean, max) "
+          f"{'; '.join(f'{k} {v[1]}' for k, v in r3.items())}; trainer 2 + 2 epochs at n_data "
+          f"256: step1 losses {res3.hist_step1.tolist()}, step2 {res3.hist_step2.tolist()}; "
+          f"spectral launches solve {n_solve}, trainer {n1}; train steps/s "
+          f"{s3['train_steps_per_sec']:.3f}, step-1 steps/s (epoch 2) "
+          f"{s3.get('step1_steps_per_sec_steady', float('nan')):.3f}; field solves/s at B 64 "
+          f"{fwd3:.1f}; {dt_s:.2f} s on {card}", flush=True)
+
+    # 46. Laplace and refinement through the 10x5 field fh (Jacobi CG, f64)
+    #     on the card, to tests/test_laplace.py:35 and tests/test_refine.py:34's
+    #     gates
+    t0 = phase_start()
+    m10, kl10, cfg10, f10, t_true, y_obs, lp = small[-1]  # the card's
+    lres = laplace_posterior(lp, torch.zeros(4, dtype=torch.float64, device=dev), tol=1e-7)
+    stds = np.sqrt(np.diag(lres.cov))
+    lap_ok = (lres.grad_norm < 1e-6 and np.abs(lres.theta_map - t_true.cpu().numpy()).max() <= 0.05
+              and np.all(stds < 1.0) and np.all(stds > 0))
+    if not lap_ok:
+        fail(f"Laplace through the 10x5 field fh: grad norm {lres.grad_norm}, mode "
+             f"{lres.theta_map}, stds {stds}")
+    f11 = rf.make_fh_fun_field(m10, kl10, cfg10, probe_nodes=tuple(range(8, 55, 6)), tol=1e-11)
+    with torch.no_grad():
+        y_n = f11(t_true[None])[0][0] + 0.01
+    lres_n = laplace_posterior(make_fem_logpost(f11, y_n, cfg10.sig_e),
+                               torch.zeros(4, dtype=torch.float64, device=dev), tol=1e-7)
+    t_ref = time.perf_counter()
+    mu, L, _ = refine_posterior(
+        lambda th: f11(th)[0], y_n, cfg10.sig_e,
+        t_true + torch.tensor([0.3, -0.25, 0.3, -0.3], dtype=torch.float64, device=dev),
+        0.3 * torch.eye(4, dtype=torch.float64, device=dev),
+        generator=torch.Generator().manual_seed(1), steps=3000, ne=16, lr=1e-2, chunk_steps=500)
+    refine_ms = 1e3 * (time.perf_counter() - t_ref) / 3000
+    vi_std = np.sqrt(torch.sum(L**2, -1).cpu().numpy())
+    la_std = np.sqrt(np.diag(lres_n.cov))
+    zgap = np.abs(mu.cpu().numpy() - lres_n.theta_map) / la_std
+    ratio = vi_std / la_std
+    if not (np.all(zgap < 0.6) and np.all(ratio > 0.7) and np.all(ratio < 1.4)):
+        fail(f"refinement through the 10x5 field fh vs Laplace: zgap {zgap} (< 0.6), std ratio "
+             f"{ratio} (0.7-1.4)")
+    dt_s, _ = phase_end(t0)
+    out["refine_field_ms"] = refine_ms
+    print(f"[46 field Laplace + refine] ok: 10x5, 4 modes: Laplace grad norm {lres.grad_norm:.2e} "
+          f"(< 1e-6), |mode - truth| {np.abs(lres.theta_map - t_true.cpu().numpy()).max():.2e} "
+          f"(<= 0.05), stds {stds.round(4).tolist()}; refinement 3000 steps vs Laplace: zgap "
+          f"max {zgap.max():.3f} (< 0.6), std ratio {ratio.min():.3f}-{ratio.max():.3f} (0.7-1.4); "
+          f"{refine_ms:.2f} ms a refinement step; {dt_s:.2f} s", flush=True)
+
+    # 47. the field ROM at 10x5 (6 modes, 128 candidates, at most 120
+    #     vectors) to tests/test_randomfield.py:383's gates; the ROM fh and
+    #     the full field fh each timed at B = 256
+    t0 = phase_start()
+    kl6 = rf.build_kl_expansion(m10, n_modes=6, corr_len=15.0, sigma=0.3)
+    probes6 = tuple(range(8, 67, 6))
+    cfg6 = ProblemConfig(theta_dim=6, y_dim=2 * len(probes6), ele_id=5)
+    t_rb = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        rb = build_reduced_basis_field(m10, kl6, nu=0.3, n_candidates=128, n_validate=32,
+                                       tol=1e-9, max_basis=120, seed=0)
+    rb_s = time.perf_counter() - t_rb
+    if not (rb.max_rel_residual < 1e-9 and rb.val_max_rel_residual < 1e-10):
+        fail(f"field ROM certificates: train {rb.max_rel_residual} (< 1e-9), held-out "
+             f"{rb.val_max_rel_residual} (< 1e-10)")
+    fh_rom = make_fh_fun_field_rom(m10, kl6, rb, cfg6, probe_nodes=probes6)
+    fh_full = rf.make_fh_fun_field(m10, kl6, cfg6, probe_nodes=probes6, tol=1e-12)
+    th5 = torch.randn((5, 6), generator=torch.Generator().manual_seed(7),
+                      dtype=torch.float64).to(dev)
+    with torch.no_grad():
+        (yr, hr), (yf, hf) = fh_rom(th5), fh_full(th5)
+    ok = (torch.allclose(yr, yf, rtol=2e-7, atol=1e-10) and torch.allclose(hr, hf, rtol=2e-7,
+                                                                            atol=0))
+    grads = []
+    for f in (fh_rom, fh_full):
+        t1 = th5[:1].clone().requires_grad_(True)
+        y, h = f(t1)
+        grads.append(torch.autograd.grad((y**2).sum() + h.sum(), t1)[0])
+    gerr = float(((grads[0] - grads[1]).abs() / grads[1].abs()).max())
+    if not (ok and gerr <= 1e-5):
+        fail(f"field ROM vs full field fh: y {rel_err(yr, yf)}, h {rel_err(hr, hf)} (rtol 2e-7), "
+             f"gradient {gerr} (rtol 1e-5)")
+    th256 = torch.randn((256, 6), generator=torch.Generator().manual_seed(47),
+                        dtype=torch.float64).to(dev)
+    rom_sps = solves_per_s(fh_rom, th256, grad=False, reps=10)
+    full_sps = solves_per_s(fh_full, th256, grad=False)
+    dt_s, _ = phase_end(t0)
+    out["field_rom"] = dict(r=rb.r, rom_solves_per_s=rom_sps, full_solves_per_s=full_sps)
+    print(f"[47 field ROM] ok: 10x5, 6 modes: r = {rb.r} in {rb_s:.1f} s on the host, "
+          f"certificates train {rb.max_rel_residual:.2e} (< 1e-9), held-out "
+          f"{rb.val_max_rel_residual:.2e} (< 1e-10); ROM vs full field fh at 5 thetas y "
+          f"{rel_err(yr, yf):.2e}, h {rel_err(hr, hf):.2e} (rtol 2e-7), gradient {gerr:.2e} "
+          f"(rtol 1e-5); solves/s at B 256 (f64): ROM {rom_sps:.1f}, full field fh (Jacobi CG "
+          f"tol 1e-12) {full_sps:.1f}; {dt_s:.2f} s on {card}", flush=True)
     return out
 
 

@@ -12,6 +12,13 @@ loss histories and a summary to ``--results``; ``--resume`` goes on from
 the checkpoints there, and reuses the cached dataset when it was made for
 the same seed, sizes and mesh.
 
+For the accuracy cross-check the same dataset then trains the certified
+reduced-basis path (``rom.reduced_basis``, the
+``examples/train_scaled_rom_torch.py`` operator) from the same seed, and
+the two posteriors and predictives are compared net to net on every
+observation (``posterior_vs_rom`` in ``summary.json``); ``--skip-rom-compare``
+leaves it out.
+
     python examples/train_scaled_fullorder_torch.py --device cuda --n-data 256 --epochs1 2 --epochs2 2
 """
 # Allow running directly from a repo checkout without installation.
@@ -27,6 +34,41 @@ import time
 import numpy as np
 
 
+def rom_compare(model, cfg, tcfg, ds, trainer, res, seed, device):
+    """Train the certified ROM path on the same dataset from the same seed
+    and compare both runs' posterior and predictive nets on every
+    observation: each rmse beside the ROM run's spread across observations."""
+    import torch
+
+    from vbicm_tpu_torch.rom import build_reduced_basis, make_fh_fun_rom
+    from vbicm_tpu_torch.vi.train import TwoStepTrainer
+
+    t0 = time.time()
+    rb = build_reduced_basis(model, tol=1e-10)
+    tr_rom = TwoStepTrainer(None, cfg, tcfg, fh_batch=make_fh_fun_rom(model, rb, cfg),
+                            device=device)
+    res_rom = tr_rom.fit(ds.y_data, ds.e_data, torch.Generator().manual_seed(seed + 1))
+    print(f"ROM-path training on the same dataset (r={rb.r}): {time.time() - t0:.1f}s")
+    y_all = torch.as_tensor(ds.y_data, device=device)
+    with torch.no_grad():
+        tm_f, tsg_f, _ = res.theta_net(y_all)
+        tm_r, tsg_r, _ = res_rom.theta_net(y_all)
+        zm_f, zs_f, _ = res.z_net(y_all)
+        zm_r, zs_r, _ = res_rom.z_net(y_all)
+
+    def rmse(a, b):
+        return float(torch.sqrt(torch.mean((a - b) ** 2)))
+
+    return dict(
+        theta_mean_rmse=rmse(tm_f, tm_r), theta_mean_scale=float(torch.std(tm_r)),
+        theta_sig_rmse=rmse(tsg_f, tsg_r), theta_sig_scale=float(torch.std(tsg_r)),
+        z_mean_rmse=rmse(zm_f, zm_r), z_mean_scale=float(torch.std(zm_r)),
+        z_sig_rmse=rmse(zs_f, zs_r), z_sig_scale=float(torch.std(zs_r)),
+        step1_last_rom=float(res_rom.hist_step1[-1]), step2_last_rom=float(res_rom.hist_step2[-1]),
+        rom_r=rb.r,
+    )
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--nx", type=int, default=160)
@@ -38,6 +80,7 @@ def main():
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--exact", action="store_true",
                     help="float64 refinement residuals instead of split-float32")
+    ap.add_argument("--skip-rom-compare", action="store_true")
     ap.add_argument("--resume", action="store_true",
                     help="continue from the latest checkpoints in --results")
     ap.add_argument("--device", type=str, default="cuda")
@@ -113,6 +156,10 @@ def main():
 
     np.savez(os.path.join(args.results, "train_hist.npz"),
              train_loss_step1=res.hist_step1, train_loss_step2=res.hist_step2)
+    if not args.skip_rom_compare:
+        summary["posterior_vs_rom"] = rom_compare(model, cfg, tcfg, ds, trainer, res, args.seed,
+                                                  device)
+        print("posterior full-order vs ROM:", json.dumps(summary["posterior_vs_rom"], indent=1))
     with open(os.path.join(args.results, "summary.json"), "w") as f:
         json.dump(summary, f, indent=1)
     print(f"wrote {args.results}/summary.json")

@@ -137,6 +137,10 @@ def test_port_sources_import_no_jax():
              os.path.join(ROOT, "examples", "train_analytic_case_torch.py"),
              os.path.join(ROOT, "examples", "train_flow_vi_torch.py"),
              os.path.join(ROOT, "examples", "cooks_forward_torch.py"),
+             os.path.join(ROOT, "examples", "train_randomfield_torch.py"),
+             os.path.join(ROOT, "examples", "train_randomfield_3d_torch.py"),
+             os.path.join(ROOT, "examples", "arbitrate_scaled_posterior_torch.py"),
+             os.path.join(ROOT, "examples", "validate_scaled_3d_torch.py"),
              os.path.join(ROOT, "tools", "profile_scaled_torch.py")]
     for m in pkgutil.walk_packages(vbicm_tpu_torch.__path__, "vbicm_tpu_torch."):
         files.append(importlib.util.find_spec(m.name).origin)
@@ -203,6 +207,17 @@ def test_postprocess_example_refuses_to_run_without_a_gpu():
 
 @pytest.mark.parametrize("example", ["train_flow_vi_torch.py", "cooks_forward_torch.py"])
 def test_new_examples_refuse_to_run_without_a_gpu(example):
+    proc = subprocess.run([sys.executable, os.path.join(ROOT, "examples", example)],
+                          cwd=ROOT, capture_output=True, text=True, timeout=120,
+                          env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    assert proc.returncode != 0
+    assert "no GPU" in proc.stderr
+
+
+@pytest.mark.parametrize("example", ["train_randomfield_torch.py", "train_randomfield_3d_torch.py",
+                                     "arbitrate_scaled_posterior_torch.py",
+                                     "validate_scaled_3d_torch.py"])
+def test_field_examples_refuse_to_run_without_a_gpu(example):
     proc = subprocess.run([sys.executable, os.path.join(ROOT, "examples", example)],
                           cwd=ROOT, capture_output=True, text=True, timeout=120,
                           env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})

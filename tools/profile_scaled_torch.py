@@ -13,7 +13,12 @@
 - ``element_fh`` and ``stencil_fh``: one batch of --batch (256) observation-operator
   solves on Cook's 160x80 through the two-level solver's element path
   (the element kernel, gather transfers) or its stencil path (float32 CG
-  at tol 3e-3 + one refinement), as chip_smoke.py times them.
+  at tol 3e-3 + one refinement), as chip_smoke.py times them;
+- ``field_fh`` and ``field3d_fh``: one batch of --batch (256) random-field
+  observation-operator solves, examples/train_randomfield_torch.py's 80x40
+  (16 KL modes) and examples/train_randomfield_3d_torch.py's 32x8x8 (12
+  modes): the field solver in grid mode, the mean-field two-level cycle,
+  float32 CG at tol 3e-3 + one refinement.
 
 Prints the card's name and power limit, the untraced step time, and from a
 ``torch.profiler`` trace of --steps steps: device time by kernel family,
@@ -24,6 +29,7 @@ of the traced wall time. Writes the Chrome trace to --trace.
     python tools/profile_scaled_torch.py --config box3d --steps 3
     python tools/profile_scaled_torch.py --config element_fh --steps 2
     python tools/profile_scaled_torch.py --config box3d_fh --batch 64 --steps 3
+    python tools/profile_scaled_torch.py --config field_fh --steps 2
 """
 import os as _os, sys as _sys
 _sys.path.insert(0, _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))))
@@ -32,6 +38,8 @@ import argparse
 import collections
 import dataclasses
 import json
+import os
+import sys
 import time
 
 import numpy as np
@@ -175,11 +183,36 @@ def cooks_fh(torch, dev, residual, batch, use_stencil):
     return step
 
 
+def field_fh(torch, dev, batch, three_d):
+    """One batch of the field examples' observation-operator solves at prior
+    draws of theta."""
+    import importlib.util
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, os.path.join(root, "examples"))
+    name = "train_randomfield_3d_torch" if three_d else "train_randomfield_torch"
+    spec = importlib.util.spec_from_file_location(name, os.path.join(root, "examples",
+                                                                     name + ".py"))
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    _, kl, _, _, fh = example.build(32, 8, 8, device=dev) if three_d else \
+        example.build(80, 40, device=dev)
+    thetas = torch.as_tensor(np.random.default_rng(5).normal(size=(batch, kl.n_modes)),
+                             device=dev)
+
+    def step():
+        with torch.no_grad():
+            return fh(thetas)[1].sum()
+
+    return step
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--config", choices=("160x80", "box3d", "box3d_fh", "element_fh",
-                                         "stencil_fh"), default="160x80")
+                                         "stencil_fh", "field_fh", "field3d_fh"),
+                    default="160x80")
     ap.add_argument("--split-f32", action="store_true")
     ap.add_argument("--batch", type=int, default=256, help="solves a batch (the fh configs)")
     ap.add_argument("--trace", type=str, default=None)
@@ -198,7 +231,10 @@ def main():
     make = {"160x80": cooks_step, "box3d": box3d_step,
             "box3d_fh": lambda *a: box3d_fh(*a, args.batch),
             "element_fh": lambda *a: cooks_fh(*a, args.batch, use_stencil=False),
-            "stencil_fh": lambda *a: cooks_fh(*a, args.batch, use_stencil=True)}[args.config]
+            "stencil_fh": lambda *a: cooks_fh(*a, args.batch, use_stencil=True),
+            "field_fh": lambda torch, dev, _: field_fh(torch, dev, args.batch, False),
+            "field3d_fh": lambda torch, dev, _: field_fh(torch, dev, args.batch, True),
+            }[args.config]
     step = make(torch, dev, residual)
 
     for _ in range(2):

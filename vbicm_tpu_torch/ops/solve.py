@@ -28,15 +28,20 @@ the backward pass then takes the adjoint solve through the solve itself,
 and the coefficient cotangent in the full space, ``cbar = -(w^T A x,
 w^T B x)`` with the saved output x, so that autograd can differentiate the
 backward pass; without a graph it is the eigen-coordinate form above. The
-matrix-free solve has no second derivative yet.
+matrix-free affine solve and the per-element field solve do the same.
+
+Field solver (``make_field_solver``): matrix-free PCG for the operator
+``K(E) = sum_e E_e ke_unit_e`` of a per-element coefficient field (the
+random-field family, ``prob.randomfield``), batched over fields.
 """
 from __future__ import annotations
 
 import numpy as np
 import scipy.linalg
 import torch
+import torch.nn.functional as F
 
-from .assembly import jacobi_diagonal
+from .assembly import dof_incidence, jacobi_diagonal
 from .element_kernel import ElementOperator
 from .spectral_kernel import spectral_apply_batched
 
@@ -392,22 +397,43 @@ class _MatfreeSolve(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, ubar):
-        if torch.is_grad_enabled():
-            raise NotImplementedError(
-                "a second derivative through the matrix-free solve (backward with "
-                "create_graph=True) is not ported; ROADMAP Queue 1 item 8")
         coeffs, u = ctx.saved_tensors
         solver = ctx.solver
-        w = solver.solve_once(coeffs, ubar)
+        graph = torch.is_grad_enabled()
+        if graph:
+            # create_graph: the adjoint solve through the solve itself and
+            # the parts' applies through _PartApply, so that the backward
+            # pass can be differentiated (u is this solve's tracked output)
+            w = _MatfreeSolve.apply(coeffs, ubar, solver)
+        else:
+            w = solver.solve_once(coeffs, ubar)
         cbar = None
         if ctx.needs_input_grad[0]:
             # cbar_p = -<w, K_p u> on the free dofs, per sample: K_p u is the
             # affine apply with unit coefficients
             unit = torch.eye(coeffs.shape[1], dtype=u.dtype, device=u.device)
-            cbar = torch.stack(
-                [-_dot(w, solver.affine(unit[p].expand(u.shape[0], -1), u) * solver.free_mask)
-                 for p in range(coeffs.shape[1])], dim=-1).to(coeffs.dtype)
+            cbar = []
+            for p in range(coeffs.shape[1]):
+                c = unit[p].expand(u.shape[0], -1)
+                ku = _PartApply.apply(u, c, solver) if graph else solver.affine(c, u)
+                cbar.append(-_dot(w, ku * solver.free_mask))
+            cbar = torch.stack(cbar, dim=-1).to(coeffs.dtype)
         return cbar, w, None
+
+
+class _PartApply(torch.autograd.Function):
+    """``K(c) u`` for constant coefficients c through the solver's affine
+    apply (a kernel on the card), differentiable in u: K(c) is symmetric,
+    so the cotangent of u is ``K(c) g``."""
+
+    @staticmethod
+    def forward(ctx, u, c, solver):
+        ctx.c, ctx.solver = c, solver
+        return solver.affine(c, u)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _PartApply.apply(g, ctx.c, ctx.solver), None, None
 
 
 def make_matfree_affine_solver(
@@ -448,3 +474,217 @@ def make_matfree_affine_solver(
                                cg_dtype=cg_dtype, refine_iters=refine_iters,
                                preconditioner=preconditioner, affine_matvec=affine_matvec,
                                diag_parts=diag_parts, refine_residual=refine_residual)
+
+
+# ---------------------------------------------------------------------------
+# Per-element coefficient field solver (random-field inversion)
+# ---------------------------------------------------------------------------
+
+
+def _grid_layout(lm_np, ndof: int, grid):
+    """(cells, node offsets) of a declared structured grid: ``grid`` (nx,
+    ny) is the quad4 numbering of ``mesh/cooks.py`` (node row*(nx+1)+col,
+    element r*nx+c, conn (n0, n0+1, n0+nx+2, n0+nx+1)), (nx, ny, nz) the
+    hex8 numbering of ``mesh/solid3d.py`` (node (k*(ny+1)+j)*(nx+1)+i,
+    element (k*ny+j)*nx+i, bottom quad counter-clockwise then top). cells
+    are memory-major ((ny, nx) or (nz, ny, nx)); each offset is a conn
+    slot's node in cells. A dof map that does not follow the layout raises
+    ``ValueError``."""
+    nd = len(grid)
+    if nd == 2:
+        lpos = ((0, 0), (0, 1), (1, 1), (1, 0))
+    elif nd == 3:
+        lpos = ((0, 0, 0), (0, 0, 1), (0, 1, 1), (0, 1, 0),
+                (1, 0, 0), (1, 0, 1), (1, 1, 1), (1, 1, 0))
+    else:
+        raise ValueError("grid must be (nx, ny) or (nx, ny, nz)")
+    cells = tuple(int(c) for c in reversed(grid))
+    Ns = tuple(c + 1 for c in cells)
+    nele = int(np.prod(cells))
+    if lm_np.shape[0] != nele or ndof != int(np.prod(Ns)) * nd:
+        raise ValueError(f"lm/ndof do not match the declared {grid} grid")
+    eidx = np.unravel_index(np.arange(nele), cells)
+    nodes = np.stack([np.ravel_multi_index(tuple(eidx[a] + off[a] for a in range(nd)), Ns)
+                      for off in lpos], axis=1)
+    lm_expect = (nd * nodes[:, :, None] + np.arange(nd)).reshape(nele, nd * len(lpos))
+    if not np.array_equal(lm_np, lm_expect):
+        raise ValueError("lm table does not follow the structured-grid layout")
+    return cells, lpos
+
+
+class FieldSolver:
+    """``solve(E (B, nele), f (B, ndof)) -> u (B, ndof)`` for ``K(E) u = f``
+    on the free dofs with ``K(E) = sum_e E_e ke_unit_e``, the adjoint
+    backward pass and its second derivative; built by
+    :func:`make_field_solver`. ``last_cg_iters`` holds the per-lane CG
+    iteration counts of the last solve's CG runs (the first solve and each
+    refinement), as device tensors."""
+
+    def __init__(self, ke_unit, lm, free_mask, ndof, *, tol, maxiter, cg_dtype, refine_iters,
+                 preconditioner, grid):
+        self.ke_unit = ke_unit
+        self.cg_dtype = ke_unit.dtype if cg_dtype is None else cg_dtype
+        self.ke_cg = ke_unit.to(self.cg_dtype)
+        self.free_mask = free_mask
+        self.mask_cg = free_mask.to(self.cg_dtype)
+        self.ndof = int(ndof)
+        self.tol = float(tol)
+        self.maxiter = int(maxiter)
+        self.refine_iters = int(refine_iters)
+        self.preconditioner = preconditioner
+        lm_np = np.asarray(lm.cpu() if isinstance(lm, torch.Tensor) else lm, dtype=np.int64)
+        self.nele, self.edof = lm_np.shape
+        device = ke_unit.device
+        if grid is not None:
+            self.cells, self.lpos = _grid_layout(lm_np, self.ndof, grid)
+        else:
+            self.cells = None
+            self.lm = torch.as_tensor(lm_np, device=device)
+            # each dof's element entries in increasing order, padded with the
+            # index of a zero appended to the flat entries: the sums run in
+            # a fixed order (no atomics on the card)
+            row_ptr, ent = dof_incidence(lm_np, self.ndof)
+            counts = np.diff(row_ptr)
+            width = max(1, int(counts.max()))
+            table = np.full((self.ndof, width), lm_np.size, dtype=np.int64)
+            slot = np.arange(ent.size) - np.repeat(row_ptr[:-1], counts)
+            table[np.repeat(np.arange(self.ndof), counts), slot] = ent
+            self.table = torch.as_tensor(table, device=device)
+        # per-element unit diagonals: the E-weighted Jacobi diagonal is one
+        # scatter of scaled values
+        self.diag_e = torch.diagonal(self.ke_cg, dim1=-2, dim2=-1)
+        self.last_cg_iters = []
+
+    def gather(self, x):
+        """(B, ndof) -> (B, nele, edof) element dof values."""
+        if self.cells is None:
+            return x[:, self.lm]
+        B, nd = x.shape[0], len(self.cells)
+        g = x.reshape(B, *(c + 1 for c in self.cells), nd)
+        parts = [g[(slice(None),) + tuple(slice(o, o + c) for o, c in zip(off, self.cells))]
+                 for off in self.lpos]
+        return torch.cat(parts, dim=-1).reshape(B, self.nele, self.edof)
+
+    def scatter(self, qe):
+        """(B, nele, edof) -> (B, ndof), the sum of element contributions
+        into the dofs, in a fixed order."""
+        B = qe.shape[0]
+        if self.cells is None:
+            flat = torch.cat([qe.reshape(B, -1), qe.new_zeros((B, 1))], dim=1)
+            return flat[:, self.table].sum(-1)
+        nd = len(self.cells)
+        q = qe.reshape(B, *self.cells, len(self.lpos), nd)
+        out = None
+        for li, off in enumerate(self.lpos):
+            pad = [0, 0]  # F.pad runs from the last axis (the dof channel) back
+            for o in reversed(off):
+                pad += [o, 1 - o]
+            t = F.pad(q[..., li, :], pad)
+            out = t if out is None else out + t
+        return out.reshape(B, self.ndof)
+
+    def matvec(self, ke, mask, E, x):
+        """``K(E) x`` on the free dofs (identity on the fixed ones) in x's
+        dtype: the element products with the constant blocks ke, each
+        element's scaled by its E, scattered."""
+        qe = torch.einsum("eij,bej->bei", ke, self.gather(x * mask))
+        return self.scatter(E[:, :, None].to(qe.dtype) * qe) * mask + x * (1.0 - mask)
+
+    def _cg_once(self, E, b):
+        Ec = E.to(self.cg_dtype)
+        d = self.scatter(Ec[:, :, None] * self.diag_e)  # diag K(E)
+        minv = 1.0 / torch.where(self.mask_cg > 0, torch.where(d == 0, 1.0, d), 1.0)
+        if self.preconditioner is not None:
+            prec = lambda r: self.preconditioner(E, minv, r)  # noqa: E731
+        else:
+            prec = lambda r: minv * r  # noqa: E731
+        bc = (b * self.free_mask).to(self.cg_dtype)
+        x, iters, _ = pcg(lambda x: self.matvec(self.ke_cg, self.mask_cg, Ec, x), bc, prec,
+                          tol=self.tol, maxiter=self.maxiter)
+        self.last_cg_iters.append(iters)
+        return x
+
+    def solve_once(self, E, b):
+        self.last_cg_iters = []
+        x = self._cg_once(E, b).to(b.dtype)
+        for _ in range(self.refine_iters):
+            mask = self.free_mask
+            r = b * mask - self.matvec(self.ke_unit, mask, E, x) * mask
+            x = x + self._cg_once(E, r).to(b.dtype)
+        return x * self.free_mask
+
+    def field_cotangent(self, w, u):
+        """``Ebar_e = -w_e^T (ke_unit_e u_e)`` per field, (B, nele)."""
+        mask = self.free_mask
+        ku = torch.einsum("eij,bej->bei", self.ke_unit, self.gather(u * mask))
+        return -torch.einsum("bei,bei->be", self.gather(w * mask), ku)
+
+    def __call__(self, E, f):
+        return _FieldSolve.apply(E, f, self)
+
+
+class _FieldSolve(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, E, f, solver):
+        u = solver.solve_once(E, f)
+        ctx.save_for_backward(E, u)
+        ctx.solver = solver
+        return u
+
+    @staticmethod
+    def backward(ctx, ubar):
+        E, u = ctx.saved_tensors
+        solver = ctx.solver
+        if torch.is_grad_enabled():
+            # create_graph: the adjoint solve through the solve itself and the
+            # cotangent from the tracked output u, so that the backward pass
+            # can be differentiated
+            w = _FieldSolve.apply(E, ubar, solver)
+        else:
+            w = solver.solve_once(E, ubar)
+        Ebar = solver.field_cotangent(w, u).to(E.dtype) if ctx.needs_input_grad[0] else None
+        return Ebar, w, None
+
+
+def make_field_solver(
+    ke_unit,
+    lm,
+    free_mask,
+    ndof: int,
+    *,
+    tol: float = 1e-12,
+    maxiter: int = 4000,
+    cg_dtype=None,
+    refine_iters: int = 0,
+    preconditioner=None,
+    grid=None,
+):
+    """Differentiable batched matrix-free solver for a per-element
+    coefficient field (counterpart of the JAX package's
+    ``make_field_solver``): ``K(E) = sum_e E_e ke_unit_e``, E (B, nele)
+    positive.
+
+    ke_unit (nele, edof, edof) unit-modulus element blocks, lm (nele, edof),
+    free_mask (ndof,) 0/1. ``solve(E (B, nele), f (B, ndof)) -> u (B,
+    ndof)`` with zeros on the fixed dofs. Each CG iteration gathers the
+    element dofs, multiplies by the constant blocks (one einsum over the
+    batch), scales each element's product by its E and scatters. The
+    scatter runs in a fixed order, no atomics: ``grid=(nx, ny)`` or ``(nx,
+    ny, nz)`` declares the structured quad4 or hex8 numbering (the lm table
+    is checked against it, ``ValueError`` if it does not follow), and then
+    gather and scatter are reshapes, 4 or 8 shifted slices and padded adds;
+    without ``grid`` the scatter sums each dof's padded list of element
+    entries. Jacobi-PCG, or ``preconditioner(E, diag_inv, r) -> z`` with the
+    E-weighted Jacobi inverse (e.g. ``prob.randomfield.
+    make_mean_field_preconditioner``).
+
+    ``cg_dtype=torch.float32`` with ``refine_iters`` refinements (residuals
+    in ke_unit's dtype) is the mixed-precision policy of
+    :func:`make_matfree_affine_solver`. The backward pass is the same
+    refined solve applied to the cotangent, w, and ``Ebar_e = -w_e^T
+    (ke_unit_e u_e)``; under ``create_graph`` it builds a graph, so a
+    Hessian runs through it. The field matvec is PyTorch ops: the JAX
+    package's is XLA's, not a Pallas kernel.
+    """
+    return FieldSolver(ke_unit, lm, free_mask, ndof, tol=tol, maxiter=maxiter, cg_dtype=cg_dtype,
+                       refine_iters=refine_iters, preconditioner=preconditioner, grid=grid)

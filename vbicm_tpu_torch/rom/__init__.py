@@ -1,3 +1,9 @@
+from .field import (
+    FieldReducedBasis,
+    build_reduced_basis_field,
+    make_fh_fun_field_rom,
+    reduced_field_solve,
+)
 from .reduced_basis import (
     ReducedBasis,
     build_reduced_basis,
@@ -7,4 +13,5 @@ from .reduced_basis import (
 )
 
 __all__ = ["ReducedBasis", "build_reduced_basis", "make_fh_fun_rom", "reduced_solve",
-           "residual_norm"]
+           "residual_norm", "FieldReducedBasis", "build_reduced_basis_field",
+           "make_fh_fun_field_rom", "reduced_field_solve"]
