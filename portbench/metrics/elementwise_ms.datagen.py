@@ -1,0 +1,2 @@
+"""Device ms a chunk of 256 solves in elementwise kernels (CG's vector updates)."""
+from portbench.harness.readers import elementwise_ms as read  # noqa: F401
