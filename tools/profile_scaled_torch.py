@@ -14,31 +14,44 @@
   solves on Cook's 160x80 through the two-level solver's element path
   (the element kernel, gather transfers) or its stencil path (float32 CG
   at tol 3e-3 + one refinement), as chip_smoke.py times them;
+- ``datagen``: one ``generate_data_fem`` call through the stencil path, 10
+  chunks of --batch (256) prior draws, as the benchmark's datagen cell
+  makes them;
 - ``field_fh`` and ``field3d_fh``: one batch of --batch (256) random-field
   observation-operator solves, examples/train_randomfield_torch.py's 80x40
   (16 KL modes) and examples/train_randomfield_3d_torch.py's 32x8x8 (12
   modes): the field solver in grid mode, the mean-field two-level cycle,
   float32 CG at tol 3e-3 + one refinement.
 
-Prints the card's name and power limit, the untraced step time, and from a
-``torch.profiler`` trace of --steps steps: device time by kernel family,
-device-busy time (the union of kernel intervals) and the device-idle share
-of the traced wall time. Writes the Chrome trace to --trace.
+Prints the card's name and power limit, the untraced step time with the
+program's spans off and on (``utils.trace``; --repeats alternating runs of
+--steps steps each), and from a ``torch.profiler`` trace of --steps steps,
+spans on: device time by kernel family, device-busy time (the union of
+kernel intervals), the device-idle share of the traced wall time, and
+device time and launches a step by program span (each kernel given to the
+innermost span open around its launch, ``utils.trace.by_span``), the idle
+time by the span open at each gap, the batched CG's loop steps and lane use
+(``ops.solve.pcg_loop``, from the lanes' iterations) and the host's reads
+(the CG's checks, and the counted ones). Writes the Chrome trace to --trace.
 
     python tools/profile_scaled_torch.py --steps 3 --trace scaled_step_trace.json
+    python tools/profile_scaled_torch.py --steps 12 --repeats 6
     python tools/profile_scaled_torch.py --config box3d --steps 3
     python tools/profile_scaled_torch.py --config element_fh --steps 2
     python tools/profile_scaled_torch.py --config box3d_fh --batch 64 --steps 3
     python tools/profile_scaled_torch.py --config field_fh --steps 2
+    python tools/profile_scaled_torch.py --config datagen --steps 2
 """
 import os as _os, sys as _sys
 _sys.path.insert(0, _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))))
 del _os, _sys
 import argparse
 import collections
+import contextlib
 import dataclasses
 import json
 import os
+import statistics
 import sys
 import time
 
@@ -64,19 +77,22 @@ def family(name: str) -> str:
     return "other"
 
 
-def busy_us(intervals):
-    """Length of the union of [start, end) intervals, in microseconds."""
-    total, cur_s, cur_e = 0.0, None, None
-    for s, e in sorted(intervals):
-        if cur_e is None or s > cur_e:
-            if cur_e is not None:
-                total += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    if cur_e is not None:
-        total += cur_e - cur_s
-    return total
+def kineto_events(prof, torch):
+    """(ops, kernels) of a finished ``torch.profiler`` run in the form of
+    ``utils.trace.by_span``, times in microseconds; the device's copies of
+    the spans left out."""
+    ops, kernels = [], []
+    for ev in prof.profiler.kineto_results.events():
+        t0 = ev.start_ns() / 1e3
+        t1 = t0 + ev.duration_ns() / 1e3
+        if ev.device_type() == torch.autograd.DeviceType.CUDA:
+            if not ev.is_user_annotation():
+                kernels.append((ev.name(), t0, t1, ev.correlation_id(),
+                                ev.linked_correlation_id()))
+        elif ev.device_type() == torch.autograd.DeviceType.CPU:
+            ops.append((ev.name(), ev.start_thread_id(), t0, t1, ev.correlation_id(),
+                        ev.linked_correlation_id()))
+    return ops, kernels
 
 
 def cooks_step(torch, dev, residual):
@@ -101,7 +117,7 @@ def cooks_step(torch, dev, residual):
     rng = np.random.default_rng(0)
     y = torch.as_tensor(rng.normal(size=(64, 2)) * 0.3 + np.array([-4.4, 5.8]), device=dev)
     e = torch.as_tensor(rng.normal(size=(4, 2)), device=dev)
-    return lambda: trainer.update_step1(net, opt, y, e)
+    return lambda: trainer.update_step1(net, opt, y, e), solve.solver
 
 
 def _box3d(torch, dev, cells, ratio, residual, refine_iters, maxiter, **mesh_kw):
@@ -121,7 +137,7 @@ def _box3d(torch, dev, cells, ratio, residual, refine_iters, maxiter, **mesh_kw)
                                         refine_residual=residual)
     cfg = dataclasses.replace(ProblemConfig(), y_dim=3, node_id=model.nnodes,
                               ele_id=((nz - 1) * ny + ny // 2) * nx + 2, nipt_id=(1, 5))
-    return make_fh_fun(model, cfg, solve_free=solve), cfg
+    return make_fh_fun(model, cfg, solve_free=solve), cfg, solve.solver
 
 
 def box3d_step(torch, dev, residual):
@@ -129,7 +145,8 @@ def box3d_step(torch, dev, residual):
     from vbicm_tpu_torch.config import TrainConfig
     from vbicm_tpu_torch.vi.train import TwoStepTrainer
 
-    fh, cfg = _box3d(torch, dev, (32, 8, 8), 2, residual, 1, 400, tip_force=(0.0, 0.0, -0.02))
+    fh, cfg, solver = _box3d(torch, dev, (32, 8, 8), 2, residual, 1, 400,
+                             tip_force=(0.0, 0.0, -0.02))
     rng = np.random.default_rng(0)
     with torch.no_grad():
         y, _ = fh(torch.as_tensor(rng.normal(size=(64, 2)), device=dev))
@@ -141,26 +158,25 @@ def box3d_step(torch, dev, residual):
     net = trainer.new_theta_net(torch.Generator().manual_seed(0))
     opt = trainer.optimizer_step1(net)
     e = torch.as_tensor(rng.normal(size=(4, 2)), device=dev)
-    return lambda: trainer.update_step1(net, opt, y, e)
+    return lambda: trainer.update_step1(net, opt, y, e), solver
 
 
 def box3d_fh(torch, dev, residual, batch):
     """One batch of observation-operator solves at 64x16x16 (coarse 16x4x4,
     ratio 4, lx = 4), as chip_smoke.py times it."""
-    fh, _ = _box3d(torch, dev, (64, 16, 16), 4, residual, 2, 1500, lx=4.0)
+    fh, _, solver = _box3d(torch, dev, (64, 16, 16), 4, residual, 2, 1500, lx=4.0)
     thetas = torch.as_tensor(np.random.default_rng(5).normal(size=(batch, 2)), device=dev)
 
     def step():
         with torch.no_grad():
             return fh(thetas)[1].sum()
 
-    return step
+    return step, solver
 
 
-def cooks_fh(torch, dev, residual, batch, use_stencil):
-    """One batch of observation-operator solves at Cook's 160x80
-    (coarse 40x20) through the two-level solver's element or stencil
-    path."""
+def _cooks_fh(torch, dev, residual, use_stencil):
+    """The observation operator at Cook's 160x80 (coarse 40x20) through the
+    two-level solver's element or stencil path, and its solver."""
     from vbicm_tpu_torch.config import ProblemConfig
     from vbicm_tpu_torch.mesh import cooks_membrane_mesh
     from vbicm_tpu_torch.model import build_fem_model
@@ -173,14 +189,35 @@ def cooks_fh(torch, dev, residual, batch, use_stencil):
     solve = make_two_level_solver(model, coarse, nx // 4, ny // 4, 4, cg_dtype=torch.float32,
                                   refine_iters=1, tol=3e-3, maxiter=400, use_stencil=use_stencil,
                                   refine_residual=residual)
-    fh = make_fh_fun(model, cfg, solve_free=solve)
+    return make_fh_fun(model, cfg, solve_free=solve), solve.solver
+
+
+def cooks_fh(torch, dev, residual, batch, use_stencil):
+    """One batch of observation-operator solves at Cook's 160x80."""
+    fh, solver = _cooks_fh(torch, dev, residual, use_stencil)
     thetas = torch.as_tensor(np.random.default_rng(5).normal(size=(batch, 2)), device=dev)
 
     def step():
         with torch.no_grad():
             return fh(thetas)[1].sum()
 
-    return step
+    return step, solver
+
+
+def datagen_call(torch, dev, residual, batch):
+    """One ``generate_data_fem`` call at Cook's 160x80 (stencil path): 10
+    chunks of --batch prior draws, 4 base draws, as the benchmark's
+    datagen cell makes them."""
+    from vbicm_tpu_torch.prob.datagen import generate_data_fem
+
+    fh, solver = _cooks_fh(torch, dev, residual, True)
+    gen = torch.Generator().manual_seed(5)
+
+    def step():
+        ds = generate_data_fem(gen, fh, n_sam=10 * batch, ne_sam=4, device=dev, chunk=batch)
+        return torch.as_tensor(ds.z_data).sum()
+
+    return step, solver
 
 
 def field_fh(torch, dev, batch, three_d):
@@ -204,22 +241,59 @@ def field_fh(torch, dev, batch, three_d):
         with torch.no_grad():
             return fh(thetas)[1].sum()
 
-    return step
+    return step, None  # the field solver is inside the example's fh
+
+
+@contextlib.contextmanager
+def lane_iterations(solver):
+    """Yields a list that gathers the per-lane CG counts of every solve the
+    solver makes in the block (``last_cg_iters``, device tensors)."""
+    runs = []
+    if solver is None:
+        yield runs
+        return
+    solve_once = solver.solve_once
+
+    def recorded(coeffs, b):
+        x = solve_once(coeffs, b)
+        runs.extend(solver.last_cg_iters)
+        return x
+
+    solver.solve_once = recorded
+    try:
+        yield runs
+    finally:
+        solver.solve_once = solve_once
+
+
+def timed_steps(torch, step, steps):
+    """Seconds a step over ``steps`` closed-loop steps, ending in a read."""
+    torch.cuda.synchronize()
+    tic = time.perf_counter()
+    for _ in range(steps):
+        loss = step()
+    float(loss)
+    return (time.perf_counter() - tic) / steps
 
 
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--config", choices=("160x80", "box3d", "box3d_fh", "element_fh",
-                                         "stencil_fh", "field_fh", "field3d_fh"),
+                                         "stencil_fh", "datagen", "field_fh", "field3d_fh"),
                     default="160x80")
     ap.add_argument("--split-f32", action="store_true")
-    ap.add_argument("--batch", type=int, default=256, help="solves a batch (the fh configs)")
+    ap.add_argument("--batch", type=int, default=256,
+                    help="solves a batch (the fh configs; datagen's chunk)")
+    ap.add_argument("--repeats", type=int, default=1,
+                    help="untraced runs of --steps steps with spans off, and as many on")
     ap.add_argument("--trace", type=str, default=None)
     args = ap.parse_args()
 
     import torch
 
+    from vbicm_tpu_torch.ops.solve import pcg_lane_use, pcg_loop
+    from vbicm_tpu_torch.utils import trace
     from vbicm_tpu_torch.utils.timing import card_line, profile_trace
 
     if not torch.cuda.is_available():
@@ -232,55 +306,72 @@ def main():
             "box3d_fh": lambda *a: box3d_fh(*a, args.batch),
             "element_fh": lambda *a: cooks_fh(*a, args.batch, use_stencil=False),
             "stencil_fh": lambda *a: cooks_fh(*a, args.batch, use_stencil=True),
+            "datagen": lambda *a: datagen_call(*a, args.batch),
             "field_fh": lambda torch, dev, _: field_fh(torch, dev, args.batch, False),
             "field3d_fh": lambda torch, dev, _: field_fh(torch, dev, args.batch, True),
             }[args.config]
-    step = make(torch, dev, residual)
+    step, solver = make(torch, dev, residual)
 
     for _ in range(2):
         step()
-    torch.cuda.synchronize()
-    tic = time.perf_counter()
-    for _ in range(args.steps):
-        loss = step()
-    float(loss)
-    untraced = (time.perf_counter() - tic) / args.steps
-    print(f"untraced step: {untraced * 1e3:.1f} ms ({1 / untraced:.3f} steps/s)", flush=True)
+    untraced = {"off": [], "on": []}
+    for r in range(args.repeats):  # alternating which goes first
+        for mode in ("off", "on") if r % 2 == 0 else ("on", "off"):
+            with trace.enabled(mode == "on"):
+                untraced[mode].append(timed_steps(torch, step, args.steps))
+    off, on = statistics.median(untraced["off"]), statistics.median(untraced["on"])
+    print(f"untraced step: {off * 1e3:.1f} ms ({1 / off:.3f} steps/s); spans on "
+          f"{on * 1e3:.1f} ms ({100 * (on / off - 1):+.2f} %)", flush=True)
 
-    with profile_trace(args.trace) as prof:
-        torch.cuda.synchronize()
-        tic = time.perf_counter()
-        for _ in range(args.steps):
-            loss = step()
-        float(loss)
-        wall = time.perf_counter() - tic
-    # device-side events, less the user annotations the profiler mirrors onto
-    # the device timeline (e.g. "Optimizer.step#Adam.step")
-    kernels = [ev for ev in prof.events()
-               if ev.device_type == torch.autograd.DeviceType.CUDA
-               and not ev.is_user_annotation]
+    before = trace.counters()
+    with lane_iterations(solver) as runs, profile_trace(args.trace) as prof:
+        wall = timed_steps(torch, step, args.steps) * args.steps
+    counts = {k: v - before.get(k, 0) for k, v in trace.counters().items()
+              if v != before.get(k, 0)}
+    ops, kernels = kineto_events(prof, torch)
     by_family = collections.defaultdict(lambda: [0.0, 0])
-    for ev in kernels:
-        fam = by_family[family(ev.name)]
-        fam[0] += ev.time_range.elapsed_us()
+    for name, t0, t1, _, _ in kernels:
+        fam = by_family[family(name)]
+        fam[0] += t1 - t0
         fam[1] += 1
-    busy = busy_us([(ev.time_range.start, ev.time_range.end) for ev in kernels]) / 1e6
+    busy = trace.busy_us([(k[1], k[2]) for k in kernels]) / 1e6
     total = sum(v[0] for v in by_family.values()) / 1e6
+    paths = trace.by_span(ops, kernels)
+    table, layers = trace.span_table(kernels, paths, args.steps)
+    runs = [it.cpu() for it in runs]
+    maxiter = solver.maxiter if solver is not None else None
+    loops = [pcg_loop(it, maxiter) for it in runs]
+    # the host's reads by site: the CG's checks from its loops, the rest counted
+    reads = {"cg_check": sum(c for _, c in loops)}
+    reads.update({k[len("host.sync."):]: v for k, v in counts.items()
+                  if k.startswith("host.sync.")})
     print(json.dumps({
         "card": card, "config": args.config, "steps": args.steps, "residual": residual,
-        "batch": args.batch if args.config.endswith("_fh") else None,
-        "traced_wall_s": wall, "untraced_step_s": untraced,
+        "batch": args.batch if args.config.endswith("_fh") or args.config == "datagen" else None,
+        "traced_wall_s": wall, "untraced_step_s": untraced["off"],
+        "untraced_step_spans_on_s": untraced["on"],
         "device_ops": len(kernels), "device_busy_s": busy,
         "device_idle_share": 1.0 - busy / wall,
         "kernel_time_s": total,
         "by_family": {k: {"s": v[0] / 1e6, "share": v[0] / 1e6 / total, "count": v[1]}
                       for k, v in sorted(by_family.items(), key=lambda kv: -kv[1][0])},
+        "by_span_a_step": table,
+        "idle_by_span_ms_a_step": {k: v / 1e3 / args.steps for k, v in sorted(
+            trace.span_idle(ops, kernels).items(), key=lambda kv: -kv[1])},
+        "a_step": dict(layers, host_syncs=sum(reads.values()) / args.steps,
+                       cg_steps=sum(s for s, _ in loops) / args.steps),
+        "cg_lane_util": pcg_lane_use(runs, maxiter),
+        "host_syncs_by_site": reads,
+        "counters": counts,
     }, indent=1), flush=True)
-    top = collections.defaultdict(float)
-    for ev in kernels:
-        top[ev.name[:90]] += ev.time_range.elapsed_us()
-    for name, us in sorted(top.items(), key=lambda kv: -kv[1])[:12]:
-        print(f"  {us / 1e3:9.2f} ms  {name}")
+    # the top kernels, each with the spans that launched it
+    top = collections.defaultdict(lambda: collections.defaultdict(float))
+    for (name, t0, t1, _, _), path in zip(kernels, paths):
+        top[name[:90]][path[-1] if path else "(none)"] += t1 - t0
+    for name, where in sorted(top.items(), key=lambda kv: -sum(kv[1].values()))[:12]:
+        spans = ", ".join(f"{k} {v / 1e3:.2f}" for k, v in sorted(where.items(),
+                                                                key=lambda kv: -kv[1]))
+        print(f"  {sum(where.values()) / 1e3:9.2f} ms  {name}  [{spans}]")
 
 
 if __name__ == "__main__":

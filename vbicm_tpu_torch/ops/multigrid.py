@@ -18,6 +18,8 @@ from typing import Callable
 import numpy as np
 import torch
 
+from ..utils.trace import span
+
 
 def cooks_prolongation(nx_c: int, ny_c: int, ratio: int):
     """Bilinear prolongation for Cook's meshes: coarse (nx_c x ny_c) ->
@@ -166,15 +168,23 @@ def make_two_level_preconditioner(
     restrict)`` pair: the structured-grid transfers of
     :func:`make_grid_transfer_nd` (the stencil paths) or the gather
     transfers of :func:`make_gather_transfer` (the element path); diag_inv
-    is the fine Jacobi inverse diagonal for the current coefficients."""
+    is the fine Jacobi inverse diagonal for the current coefficients.
+    Spans (``utils.trace``): ``prec``, holding ``prec.restrict``,
+    ``prec.coarse`` and ``prec.prolong``."""
     prolong, restrict = grid_transfer
     masks = {dt: fine_free_mask.to(dt) for dt in (torch.float32, torch.float64)}
 
     def prec(coeffs, diag_inv, r):
-        mask = masks[r.dtype]
-        r = r * mask
-        z_smooth = omega * diag_inv * r
-        z_c = coarse_apply(coeffs, restrict(r))
-        return z_smooth + prolong(z_c) * mask
+        with span("prec"):
+            mask = masks[r.dtype]
+            r = r * mask
+            z_smooth = omega * diag_inv * r
+            with span("prec.restrict"):
+                r_c = restrict(r)
+            with span("prec.coarse"):
+                z_c = coarse_apply(coeffs, r_c)
+            with span("prec.prolong"):
+                z_f = prolong(z_c)
+            return z_smooth + z_f * mask
 
     return prec

@@ -41,6 +41,7 @@ import scipy.linalg
 import torch
 import torch.nn.functional as F
 
+from ..utils.trace import span
 from .assembly import dof_incidence, jacobi_diagonal
 from .element_kernel import ElementOperator
 from .spectral_kernel import spectral_apply_batched
@@ -255,6 +256,12 @@ def pcg(matvec, b, prec, *, tol=1e-12, maxiter=1000):
     or NaN ``p'Kp`` or ``(r, z)``, which freezes the lane for good); a lane
     that is converged, broken down or at ``maxiter`` keeps its state.
 
+    Every lane runs each iteration of the loop until the last one
+    converges; :func:`pcg_loop` gives the loop's steps and its reads of
+    whether a lane is still active from the returned iterations. Spans
+    (``utils.trace``): ``cg.matvec``, ``cg.update`` and ``cg.check``
+    inside the loop.
+
     Returns (x (B, n), iterations (B,) int64, residual_norm_sq (B,)).
     """
     rdt = b.dtype
@@ -272,29 +279,61 @@ def pcg(matvec, b, prec, *, tol=1e-12, maxiter=1000):
     it = torch.zeros(b.shape[0], dtype=torch.int64, device=b.device)
     dead = torch.zeros(b.shape[0], dtype=torch.bool, device=b.device)
     for k in range(maxiter):
-        active = ~(rr <= thresh) & ~dead  # a NaN residual stays active, as in JAX
-        if k % _CHECK_EVERY == 0 and not bool(active.any()):
-            break
-        kp = matvec(p)
-        denom = _dot(p, kp)
-        bad = ~(denom > 0)  # catches <= 0 and NaN
-        alpha = torch.where(bad, 0.0, rz / torch.where(denom == 0, 1.0, denom))
-        # the state is updated in place, and only on active lanes
-        a = active[:, None]
-        torch.where(a, x + alpha[:, None] * p, x, out=x)
-        r_n = r - alpha[:, None] * kp
+        with span("cg.update"):
+            active = ~(rr <= thresh) & ~dead  # a NaN residual stays active, as in JAX
+        if k % _CHECK_EVERY == 0:
+            with span("cg.check"):
+                done = not bool(active.any())
+            if done:
+                break
+        with span("cg.matvec"):
+            kp = matvec(p)
+        with span("cg.update"):
+            denom = _dot(p, kp)
+            bad = ~(denom > 0)  # catches <= 0 and NaN
+            alpha = torch.where(bad, 0.0, rz / torch.where(denom == 0, 1.0, denom))
+            # the state is updated in place, and only on active lanes
+            a = active[:, None]
+            torch.where(a, x + alpha[:, None] * p, x, out=x)
+            r_n = r - alpha[:, None] * kp
         z_n = prec(r_n)
-        rz_n = _dot(r_n, z_n)
-        dead_n = dead | (active & (bad | ~(rz_n > 0)))
-        beta = torch.where(dead_n, 0.0, rz_n / torch.where(rz == 0, 1.0, rz))
-        torch.where(a, z_n + beta[:, None] * p, p, out=p)
-        torch.where(a, r_n, r, out=r)
-        torch.where(a, z_n, z, out=z)
-        rz = torch.where(active & ~dead_n, rz_n, rz)
-        rr = _dot(r, r)
-        it += active
-        dead = torch.where(active, dead_n, dead)
+        with span("cg.update"):
+            rz_n = _dot(r_n, z_n)
+            dead_n = dead | (active & (bad | ~(rz_n > 0)))
+            beta = torch.where(dead_n, 0.0, rz_n / torch.where(rz == 0, 1.0, rz))
+            torch.where(a, z_n + beta[:, None] * p, p, out=p)
+            torch.where(a, r_n, r, out=r)
+            torch.where(a, z_n, z, out=z)
+            rz = torch.where(active & ~dead_n, rz_n, rz)
+            rr = _dot(r, r)
+            it += active
+            dead = torch.where(active, dead_n, dead)
     return x * scale[:, None], it, rr * scale * scale
+
+
+def pcg_loop(iters, maxiter=None):
+    """(loop steps, activity reads) of the :func:`pcg` run whose lanes took
+    ``iters`` iterations (its returned counts, one a lane): a lane is active
+    until it stops for good and the loop reads every ``_CHECK_EVERY``
+    iterations, so it ran the slowest lane's count rounded up to a multiple
+    of that, cut at ``maxiter`` (None: never cut), and read once each time
+    it looked."""
+    steps = -(-int(iters.max()) // _CHECK_EVERY) * _CHECK_EVERY if len(iters) else 0
+    if maxiter is not None and steps >= maxiter:
+        return maxiter, -(-maxiter // _CHECK_EVERY)
+    return steps, steps // _CHECK_EVERY + 1
+
+
+def pcg_lane_use(runs, maxiter=None):
+    """The share (%) of the batched loops' lane iterations that did work,
+    over :func:`pcg` runs (each its per-lane iterations): the lanes'
+    iterations over B times the loop's steps (:func:`pcg_loop`); None
+    without a step."""
+    done = slots = 0
+    for it in runs:
+        done += int(it.sum())
+        slots += len(it) * pcg_loop(it, maxiter)[0]
+    return 100.0 * done / slots if slots else None
 
 
 class MatfreeAffineSolver:
@@ -344,36 +383,38 @@ class MatfreeAffineSolver:
 
     def _cg_once(self, coeffs, b):
         """One PCG solve in the CG dtype, for the masked rhs b."""
-        mask = self.mask_cg
-        c = coeffs.to(self.cg_dtype)
+        with span("cg.run"):
+            mask = self.mask_cg
+            c = coeffs.to(self.cg_dtype)
 
-        def mv(x):
-            return self.affine(c, x * mask) * mask + x * (1.0 - mask)
+            def mv(x):
+                return self.affine(c, x * mask) * mask + x * (1.0 - mask)
 
-        d = c @ self.diag_parts
-        d = torch.where(mask > 0, torch.where(d == 0, 1.0, d), 1.0)
-        minv = 1.0 / d
-        if self.preconditioner is not None:
-            prec = lambda r: self.preconditioner(coeffs, minv, r)  # noqa: E731
-        else:
-            prec = lambda r: minv * r  # noqa: E731
-        bc = (b * self.free_mask).to(self.cg_dtype)
-        x, iters, _ = pcg(mv, bc, prec, tol=self.tol, maxiter=self.maxiter)
+            d = c @ self.diag_parts
+            d = torch.where(mask > 0, torch.where(d == 0, 1.0, d), 1.0)
+            minv = 1.0 / d
+            if self.preconditioner is not None:
+                prec = lambda r: self.preconditioner(coeffs, minv, r)  # noqa: E731
+            else:
+                prec = lambda r: minv * r  # noqa: E731
+            bc = (b * self.free_mask).to(self.cg_dtype)
+            x, iters, _ = pcg(mv, bc, prec, tol=self.tol, maxiter=self.maxiter)
         self.last_cg_iters.append(iters)
         return x
 
     def _residual(self, coeffs, b, x):
-        mask = self.free_mask
-        if self.refine_residual == "split_f32":
-            # x = x1 + x2 exactly in two float32 halves; the residual's error
-            # is the float32 rounding of the two applies
-            x1 = x.to(torch.float32)
-            x2 = (x - x1.to(x.dtype)).to(torch.float32)
-            q = (self.affine(coeffs, x1 * self.mask_cg).to(x.dtype)
-                 + self.affine(coeffs, x2 * self.mask_cg).to(x.dtype))
-            return (b - q) * mask
-        # fixed-dof identity term cancels since x, r live on free dofs
-        return b * mask - self.affine(coeffs, x * mask) * mask
+        with span("refine.residual"):
+            mask = self.free_mask
+            if self.refine_residual == "split_f32":
+                # x = x1 + x2 exactly in two float32 halves; the residual's
+                # error is the float32 rounding of the two applies
+                x1 = x.to(torch.float32)
+                x2 = (x - x1.to(x.dtype)).to(torch.float32)
+                q = (self.affine(coeffs, x1 * self.mask_cg).to(x.dtype)
+                     + self.affine(coeffs, x2 * self.mask_cg).to(x.dtype))
+                return (b - q) * mask
+            # fixed-dof identity term cancels since x, r live on free dofs
+            return b * mask - self.affine(coeffs, x * mask) * mask
 
     def solve_once(self, coeffs, b):
         self.last_cg_iters = []
@@ -390,7 +431,8 @@ class MatfreeAffineSolver:
 class _MatfreeSolve(torch.autograd.Function):
     @staticmethod
     def forward(ctx, coeffs, f, solver):
-        u = solver.solve_once(coeffs, f)
+        with span("solve.forward"):
+            u = solver.solve_once(coeffs, f)
         ctx.save_for_backward(coeffs, u)
         ctx.solver = solver
         return u
@@ -400,24 +442,27 @@ class _MatfreeSolve(torch.autograd.Function):
         coeffs, u = ctx.saved_tensors
         solver = ctx.solver
         graph = torch.is_grad_enabled()
-        if graph:
-            # create_graph: the adjoint solve through the solve itself and
-            # the parts' applies through _PartApply, so that the backward
-            # pass can be differentiated (u is this solve's tracked output)
-            w = _MatfreeSolve.apply(coeffs, ubar, solver)
-        else:
-            w = solver.solve_once(coeffs, ubar)
+        # backward runs on the autograd engine's thread: the spans open there
+        with span("solve.adjoint"):
+            if graph:
+                # create_graph: the adjoint solve through the solve itself and
+                # the parts' applies through _PartApply, so that the backward
+                # pass can be differentiated (u is this solve's tracked output)
+                w = _MatfreeSolve.apply(coeffs, ubar, solver)
+            else:
+                w = solver.solve_once(coeffs, ubar)
         cbar = None
         if ctx.needs_input_grad[0]:
-            # cbar_p = -<w, K_p u> on the free dofs, per sample: K_p u is the
-            # affine apply with unit coefficients
-            unit = torch.eye(coeffs.shape[1], dtype=u.dtype, device=u.device)
-            cbar = []
-            for p in range(coeffs.shape[1]):
-                c = unit[p].expand(u.shape[0], -1)
-                ku = _PartApply.apply(u, c, solver) if graph else solver.affine(c, u)
-                cbar.append(-_dot(w, ku * solver.free_mask))
-            cbar = torch.stack(cbar, dim=-1).to(coeffs.dtype)
+            with span("solve.cotangent"):
+                # cbar_p = -<w, K_p u> on the free dofs, per sample: K_p u is
+                # the affine apply with unit coefficients
+                unit = torch.eye(coeffs.shape[1], dtype=u.dtype, device=u.device)
+                cbar = []
+                for p in range(coeffs.shape[1]):
+                    c = unit[p].expand(u.shape[0], -1)
+                    ku = _PartApply.apply(u, c, solver) if graph else solver.affine(c, u)
+                    cbar.append(-_dot(w, ku * solver.free_mask))
+                cbar = torch.stack(cbar, dim=-1).to(coeffs.dtype)
         return cbar, w, None
 
 
@@ -591,16 +636,17 @@ class FieldSolver:
         return self.scatter(E[:, :, None].to(qe.dtype) * qe) * mask + x * (1.0 - mask)
 
     def _cg_once(self, E, b):
-        Ec = E.to(self.cg_dtype)
-        d = self.scatter(Ec[:, :, None] * self.diag_e)  # diag K(E)
-        minv = 1.0 / torch.where(self.mask_cg > 0, torch.where(d == 0, 1.0, d), 1.0)
-        if self.preconditioner is not None:
-            prec = lambda r: self.preconditioner(E, minv, r)  # noqa: E731
-        else:
-            prec = lambda r: minv * r  # noqa: E731
-        bc = (b * self.free_mask).to(self.cg_dtype)
-        x, iters, _ = pcg(lambda x: self.matvec(self.ke_cg, self.mask_cg, Ec, x), bc, prec,
-                          tol=self.tol, maxiter=self.maxiter)
+        with span("cg.run"):
+            Ec = E.to(self.cg_dtype)
+            d = self.scatter(Ec[:, :, None] * self.diag_e)  # diag K(E)
+            minv = 1.0 / torch.where(self.mask_cg > 0, torch.where(d == 0, 1.0, d), 1.0)
+            if self.preconditioner is not None:
+                prec = lambda r: self.preconditioner(E, minv, r)  # noqa: E731
+            else:
+                prec = lambda r: minv * r  # noqa: E731
+            bc = (b * self.free_mask).to(self.cg_dtype)
+            x, iters, _ = pcg(lambda x: self.matvec(self.ke_cg, self.mask_cg, Ec, x), bc, prec,
+                              tol=self.tol, maxiter=self.maxiter)
         self.last_cg_iters.append(iters)
         return x
 
@@ -609,7 +655,8 @@ class FieldSolver:
         x = self._cg_once(E, b).to(b.dtype)
         for _ in range(self.refine_iters):
             mask = self.free_mask
-            r = b * mask - self.matvec(self.ke_unit, mask, E, x) * mask
+            with span("refine.residual"):
+                r = b * mask - self.matvec(self.ke_unit, mask, E, x) * mask
             x = x + self._cg_once(E, r).to(b.dtype)
         return x * self.free_mask
 
@@ -626,7 +673,8 @@ class FieldSolver:
 class _FieldSolve(torch.autograd.Function):
     @staticmethod
     def forward(ctx, E, f, solver):
-        u = solver.solve_once(E, f)
+        with span("solve.forward"):
+            u = solver.solve_once(E, f)
         ctx.save_for_backward(E, u)
         ctx.solver = solver
         return u
@@ -635,14 +683,18 @@ class _FieldSolve(torch.autograd.Function):
     def backward(ctx, ubar):
         E, u = ctx.saved_tensors
         solver = ctx.solver
-        if torch.is_grad_enabled():
-            # create_graph: the adjoint solve through the solve itself and the
-            # cotangent from the tracked output u, so that the backward pass
-            # can be differentiated
-            w = _FieldSolve.apply(E, ubar, solver)
-        else:
-            w = solver.solve_once(E, ubar)
-        Ebar = solver.field_cotangent(w, u).to(E.dtype) if ctx.needs_input_grad[0] else None
+        with span("solve.adjoint"):
+            if torch.is_grad_enabled():
+                # create_graph: the adjoint solve through the solve itself and
+                # the cotangent from the tracked output u, so that the
+                # backward pass can be differentiated
+                w = _FieldSolve.apply(E, ubar, solver)
+            else:
+                w = solver.solve_once(E, ubar)
+        Ebar = None
+        if ctx.needs_input_grad[0]:
+            with span("solve.cotangent"):
+                Ebar = solver.field_cotangent(w, u).to(E.dtype)
         return Ebar, w, None
 
 

@@ -22,6 +22,8 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ..utils.trace import count, span
+
 
 @dataclasses.dataclass
 class MeasurementDataset:
@@ -67,7 +69,9 @@ def generate_data_fem(
     """Generate the (y, z) dataset through the batched FEM map.
 
     batch_fh: ``thetas (B, d_theta) -> (y (B, d_y), h (B, d_z))`` on
-    ``device``; ``chunk`` bounds the batch of one call.
+    ``device``; ``chunk`` bounds the batch of one call. Spans
+    (``utils.trace``): ``datagen.chunk`` a chunk, holding
+    ``datagen.readback``, its two reads to the host.
     """
     theta = torch.randn((n_sam, d_theta), generator=generator, dtype=dtype)
     err = math.sqrt(sig_e) * torch.randn((n_sam, d_y), generator=generator, dtype=dtype)
@@ -78,9 +82,12 @@ def generate_data_fem(
     fs, hs = [], []
     with torch.no_grad():
         for i in range(0, n_sam, step):
-            f_i, h_i = batch_fh(theta[i : i + step].to(device))
-            fs.append(f_i.cpu())
-            hs.append(h_i.cpu())
+            with span("datagen.chunk"):
+                f_i, h_i = batch_fh(theta[i : i + step].to(device))
+                count("host.sync.datagen_readback", 2)
+                with span("datagen.readback"):
+                    fs.append(f_i.cpu())
+                    hs.append(h_i.cpu())
     y = (torch.cat(fs) + err).numpy()
     z = (torch.cat(hs) + eta).numpy()
     if (z <= 0.0).any():

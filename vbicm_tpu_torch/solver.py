@@ -34,6 +34,7 @@ from .ops.spectral_kernel import spectral_apply_batched
 from .ops.stencil import make_stencil_affine_matvec
 from .ops.stencil3d import make_stencil_affine_matvec_3d
 from .ops.vonmises import von_mises_reference
+from .utils.trace import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -216,15 +217,16 @@ def make_fh_fun(
     lm_probe = model.lm[cfg.ele_id - 1]
 
     def fh(thetas):
-        thetas = thetas.to(model.dtype)
-        E = torch.exp(ts[0] * thetas[:, 0] + tm[0])
-        v = 0.5 * torch.sigmoid(ts[1] * thetas[:, 1] + tm[1])
-        c0, c1 = material_coeffs(model.stype, E, v)
-        u = solve_free(c0, c1)  # (B, ndof)
-        y = u[:, obs_dofs]
-        eps3 = torch.einsum("qai,bi->bqa", B_probe, u[:, lm_probe])
-        sig6 = _stress6(model, eps3, c0[:, None], c1[:, None])
-        return y, von_mises_reference(sig6)
+        with span("fh"):
+            thetas = thetas.to(model.dtype)
+            E = torch.exp(ts[0] * thetas[:, 0] + tm[0])
+            v = 0.5 * torch.sigmoid(ts[1] * thetas[:, 1] + tm[1])
+            c0, c1 = material_coeffs(model.stype, E, v)
+            u = solve_free(c0, c1)  # (B, ndof)
+            y = u[:, obs_dofs]
+            eps3 = torch.einsum("qai,bi->bqa", B_probe, u[:, lm_probe])
+            sig6 = _stress6(model, eps3, c0[:, None], c1[:, None])
+            return y, von_mises_reference(sig6)
 
     return fh
 

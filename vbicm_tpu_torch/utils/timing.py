@@ -15,6 +15,8 @@ from typing import Any, Callable, Dict, Optional
 
 import torch
 
+from . import trace
+
 
 class Timer:
     """Context-manager wall timer: ``with Timer() as t: ...; t.seconds``.
@@ -110,13 +112,14 @@ def graph_time_s(fn: Callable, reps: int = 20, replays: int = 10) -> float:
 @contextlib.contextmanager
 def profile_trace(path: Optional[str] = None):
     """``torch.profiler`` over the block (CPU activity, and CUDA when a GPU
-    is present); yields the profiler, whose ``events()`` and
-    ``key_averages()`` give the time by kernel, and writes a Chrome trace to
-    ``path`` on exit when one is given."""
+    is present), with the program's spans on (``utils.trace``); yields the
+    profiler, whose ``events()`` and ``key_averages()`` give the time by
+    kernel, and writes a Chrome trace to ``path`` on exit when one is
+    given."""
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
-    with torch.profiler.profile(activities=activities) as prof:
+    with torch.profiler.profile(activities=activities) as prof, trace.enabled():
         yield prof
     if path:
         os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)

@@ -59,6 +59,7 @@ from ..models.mlp import (
 )
 from ..solver import make_fh_fun
 from ..utils.draws import draw_normal
+from ..utils.trace import span
 from .elbo import make_loss_step1, make_loss_step1_flow, make_loss_step1_fullcov, make_loss_step2
 
 _FAMILIES = ("meanfield", "fullcov", "flow")
@@ -215,16 +216,18 @@ class TwoStepTrainer:
 
     def _step(self, loss, params, opt):
         """Backward, optax's global-norm clip, then Adam."""
-        loss.backward()
-        max_norm = self.tcfg.clip_grad_norm
-        if max_norm is not None:
-            grads = [p.grad for p in params if p.grad is not None]
-            norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
-            keep = norm < max_norm
-            for g in grads:
-                g.copy_(torch.where(keep, g, (g / norm) * max_norm))
-            self.last_grad_norm = norm
-        opt.step()
+        with span("train.backward"):
+            loss.backward()
+        with span("train.optimizer"):
+            max_norm = self.tcfg.clip_grad_norm
+            if max_norm is not None:
+                grads = [p.grad for p in params if p.grad is not None]
+                norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+                keep = norm < max_norm
+                for g in grads:
+                    g.copy_(torch.where(keep, g, (g / norm) * max_norm))
+                self.last_grad_norm = norm
+            opt.step()
         return loss.detach()
 
     # ------------------------------------------------------------------
@@ -379,17 +382,23 @@ class TwoStepTrainer:
 
     def update_step1(self, theta_net, opt, y_batch, e_data, e=None):
         """One (clipped) Adam step of step 1 on one batch; returns the batch
-        loss. ``e`` replaces ``e_data`` as this batch's base draws."""
+        loss. ``e`` replaces ``e_data`` as this batch's base draws. Spans
+        (``utils.trace``): ``train.step`` holding ``train.loss``,
+        ``train.backward`` and ``train.optimizer`` (the clip and Adam)."""
         batch_f = lambda th: self._batch_fh(th)[0]  # noqa: E731
-        opt.zero_grad(set_to_none=True)
-        if self.flow:
-            loss = make_loss_step1_flow(batch_f, self.cfg.sig_e)(
-                y_batch, theta_net(y_batch, e_data if e is None else e))
-        else:
-            loss_fn = (make_loss_step1_fullcov(batch_f, e_data, self.cfg.sig_e) if self.fullcov
-                       else make_loss_step1(batch_f, e_data, self.cfg.sig_e, self.tcfg.pairing))
-            loss = loss_fn(y_batch, theta_net(y_batch), e)
-        return self._step(loss, theta_net.parameters(), opt)
+        with span("train.step"):
+            opt.zero_grad(set_to_none=True)
+            with span("train.loss"):
+                if self.flow:
+                    loss = make_loss_step1_flow(batch_f, self.cfg.sig_e)(
+                        y_batch, theta_net(y_batch, e_data if e is None else e))
+                else:
+                    loss_fn = (make_loss_step1_fullcov(batch_f, e_data, self.cfg.sig_e)
+                               if self.fullcov else
+                               make_loss_step1(batch_f, e_data, self.cfg.sig_e,
+                                               self.tcfg.pairing))
+                    loss = loss_fn(y_batch, theta_net(y_batch), e)
+            return self._step(loss, theta_net.parameters(), opt)
 
     def train_step1(self, y_data, e_data, generator, num_epochs=None, theta_net=None,
                     resume=False):
