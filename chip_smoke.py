@@ -71,7 +71,12 @@ before and read just after:
   adjoint against central differences and the field Hessian against the
   CPU run; the 2-D and 3-D field trainers at the examples' widths (n_data
   256, 2 + 2 epochs); Laplace and refinement through the 10x5 field fh, and
-  the 10x5 field ROM, to the JAX tests' gates.
+  the 10x5 field ROM, to the JAX tests' gates;
+- the hat transfers (phase 48, ``transfer_path``): the restriction and
+  prolongation kernels against their plain version on the benchmark cells'
+  160x80 grid, the 3-D boxes and odd small grids at ratios 2-4, two calls
+  bitwise equal, adjointness in float64, the launches of one 160x80 fh
+  batch (two a preconditioner call) and device time beside the bound.
 
 Phase 1 fails if a spectral, stencil, quad4 element or banded kernel spills
 registers; phases 2, 8, 13, 18 and 25 hold two calls of a kernel bitwise
@@ -624,6 +629,7 @@ def main():
     evals = eval_path(dev, card, box)
     fams = trainer_path(dev, card, model, ds, thetas, fh64, steps_per_s)
     field = field_path(dev, card)
+    transfer = transfer_path(dev, card)
 
     times[BOX_COARSE_SHAPE, torch.float32] = box["spectral_ms"][torch.float32]
     times[BOX_COARSE_SHAPE, torch.float64] = box["spectral_ms"][torch.float64]
@@ -776,6 +782,27 @@ def main():
         "tflops_f64_nfma4096": probe["fp64", 4096][3],
         "bound_ms_f64_nfma4096": probe["fp64", 4096][2][0],
     }]
+    t32 = {way: transfer["ms"][TRANSFER_MAIN[0], TRANSFER_MAIN[1], f32, way]
+           for way in ("restrict", "prolong")}
+    t64 = {way: transfer["ms"][TRANSFER_MAIN[0], TRANSFER_MAIN[1], f64, way]
+           for way in ("restrict", "prolong")}
+    records.append({
+        "name": "hat_transfer",
+        "route": "cuda",
+        "source": "vbicm_tpu_torch/csrc/hat_transfer.cu",
+        "replaces": None,  # the JAX package's transfers are XLA convolutions
+        "launches": scaled["transfer_launches"] + transfer["launches_fh"],
+        "launches_by_path": {"scaled_160x80": scaled["transfer_launches"],
+                             "fh_160x80": transfer["launches_fh"]},
+        "max_rel_err": max(transfer["err"].values()),
+        **{k: t32["restrict"][k] for k in ("ms", "plain_ms", "ms_eager", "bound_ms", "bound_by",
+                                           "share_of_bound")},
+        "library_ms": None,  # no one PyTorch call computes a transfer
+        **{f"{k}_prolong": t32["prolong"][k] for k in ("ms", "plain_ms", "ms_eager",
+                                                       "share_of_bound")},
+        **{f"{k}_f64": t64["restrict"][k] for k in ("ms", "plain_ms", "bound_ms")},
+        **{f"{k}_prolong_f64": t64["prolong"][k] for k in ("ms", "plain_ms")},
+    })
     print(card)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
@@ -791,6 +818,7 @@ def scaled_path(dev, card):
     from vbicm_tpu_torch.model import build_fem_model
     from vbicm_tpu_torch.ops.assembly import element_affine_matvec
     from vbicm_tpu_torch.ops.element import lame_from_Ev
+    from vbicm_tpu_torch.ops.hat_transfer_kernel import hat_transfer
     from vbicm_tpu_torch.ops.spectral_kernel import spectral_apply_batched
     from vbicm_tpu_torch.ops.stencil import StencilOperator
     from vbicm_tpu_torch.ops.stencil_kernel import (
@@ -898,6 +926,7 @@ def scaled_path(dev, card):
     tcfg = TrainConfig(batch_size=64, num_epoch1=2, num_epoch2=2)
     spectral_apply_batched.launches = 0
     stencil_affine_matvec.launches = 0
+    hat_transfer.launches = 0
     ds = generate_data_fem(torch.Generator().manual_seed(0), fh, n_sam=256, ne_sam=4, device=dev,
                            sig_e=cfg.sig_e, sig_eta=cfg.sig_eta, chunk=2048)
     trainer = TwoStepTrainer(None, cfg, tcfg, fh_batch=fh, device=dev)
@@ -905,19 +934,21 @@ def scaled_path(dev, card):
     torch.cuda.synchronize()
     out["spectral_launches"] = spectral_apply_batched.launches
     out["stencil_launches"] = stencil_affine_matvec.launches
+    out["transfer_launches"] = hat_transfer.launches
     preds = trainer.predict(res.theta_net, res.z_net, ds.y_data[:8])
     losses = np.concatenate([res.hist_step1, res.hist_step2])
     if not np.all(np.isfinite(losses)):
         fail(f"scaled trainer: non-finite losses: step1 {res.hist_step1}, step2 {res.hist_step2}")
     if not all(p.shape == (8, 2) and bool(torch.isfinite(p).all()) for p in preds):
         fail("scaled predict: outputs not finite (8, 2) tensors")
-    if out["spectral_launches"] <= 0 or out["stencil_launches"] <= 0:
+    if min(out["spectral_launches"], out["stencil_launches"], out["transfer_launches"]) <= 0:
         fail(f"the scaled trainer launched spectral {out['spectral_launches']}, stencil "
-             f"{out['stencil_launches']} times; both must be > 0")
+             f"{out['stencil_launches']}, transfer {out['transfer_launches']} times; all must "
+             "be > 0")
     print(f"[11 scaled trainer] ok: 160x80, n=256 x ne_sam 4, 2 + 2 epochs at batch 64; step1 "
           f"losses {res.hist_step1.tolist()}, step2 losses {res.hist_step2.tolist()}; kernel "
-          f"launches stencil {out['stencil_launches']}, spectral {out['spectral_launches']}",
-          flush=True)
+          f"launches stencil {out['stencil_launches']}, spectral {out['spectral_launches']}, "
+          f"transfer {out['transfer_launches']}", flush=True)
 
     # 12. times (records, not a claim), each beside the card's name and limit
     steps = math.ceil(ds.n_sam / tcfg.batch_size) * (tcfg.num_epoch1 - 1)
@@ -2656,6 +2687,156 @@ def field_path(dev, card):
           f"{rel_err(yr, yf):.2e}, h {rel_err(hr, hf):.2e} (rtol 2e-7), gradient {gerr:.2e} "
           f"(rtol 1e-5); solves/s at B 256 (f64): ROM {rom_sps:.1f}, full field fh (Jacobi CG "
           f"tol 1e-12) {full_sps:.1f}; {dt_s:.2f} s on {card}", flush=True)
+    return out
+
+
+# the hat transfers' shapes (phase 48): (B, coarse cells slowest first,
+# ratio, dofs a node). The benchmark cells' 160x80 at ratio 4 (B = 256, and
+# 512 for data generation's chunks), the 3-D boxes 32x8x8 (also the 3-D
+# field path's) and 64x16x16 at ratio 4, the 80x40 field grid, and odd
+# small grids at ratios 2, 3 and 4 with ragged batches
+TRANSFER_MAIN = (256, (20, 40), 4, 2)
+TRANSFER_SHAPES = [TRANSFER_MAIN, (512, (20, 40), 4, 2), (256, (2, 2, 8), 4, 3),
+                   (256, (4, 4, 16), 4, 3), (256, (10, 20), 4, 2), (5, (3, 5), 2, 2),
+                   (3, (1, 1), 3, 2), (7, (2, 3, 1), 3, 3), (4, (5, 7), 2, 3),
+                   (2, (2, 2, 3), 4, 2), (300, (8, 8, 32), 2, 3)]
+TRANSFER_TIMED = [TRANSFER_MAIN, (256, (2, 2, 8), 4, 3), (256, (4, 4, 16), 4, 3)]
+
+
+def hat_least_time(B, cells, ratio, ndof, dtype):
+    """least_time of one transfer (either direction): each sample's fine and
+    coarse vectors once; a multiply-add per nonzero hat weight of each
+    axis's pass, times the other axes' nodes at that pass (fine before it,
+    coarse after it in the prolongation's order; the restriction is its
+    transpose)."""
+    nf = [c * ratio + 1 for c in cells]
+    nc = [c + 1 for c in cells]
+    itemsize = torch.finfo(dtype).bits // 8
+    nbytes = B * ndof * (int(np.prod(nf)) + int(np.prod(nc))) * itemsize
+    macs = sum((nc[k] + 2 * (nf[k] - nc[k])) * int(np.prod(nf[:k])) * int(np.prod(nc[k + 1:]))
+               for k in range(len(cells)))
+    return least_time(nbytes, 2 * B * ndof * macs, dtype)
+
+
+def transfer_path(dev, card):
+    """Phase 48: the hat-transfer kernels (csrc/hat_transfer.cu) against
+    their plain version (REL_TOL of max|want|, whether bitwise), two calls
+    bitwise equal, adjointness in float64, the launch count of one 160x80
+    fh batch (two a preconditioner call, one coarse apply each), and device
+    time (CUDA graphs) beside the bound and the plain version's."""
+    import dataclasses
+
+    from vbicm_tpu_torch.config import ProblemConfig
+    from vbicm_tpu_torch.mesh import cooks_membrane_mesh
+    from vbicm_tpu_torch.model import build_fem_model
+    from vbicm_tpu_torch.ops.hat_transfer_kernel import (
+        hat_transfer,
+        hat_transfer_reference,
+        launch_plan,
+    )
+    from vbicm_tpu_torch.ops.multigrid import hat_matrix
+    from vbicm_tpu_torch.ops.spectral_kernel import spectral_apply_batched
+    from vbicm_tpu_torch.solver import make_fh_fun, make_two_level_solver
+
+    t0 = time.perf_counter()
+    out = {"err": {}, "bitwise": {}, "ms": {}}
+
+    def case(B, cells, ratio, ndof, dtype, seed):
+        nf = [c * ratio + 1 for c in cells]
+        nc = [c + 1 for c in cells]
+        ps = [torch.as_tensor(hat_matrix(f, c, ratio), dtype=dtype, device=dev)
+              for f, c in zip(nf, nc)]
+        pts = [p.T.contiguous() for p in ps]
+        rng = np.random.default_rng(seed)
+        u = torch.as_tensor(rng.normal(size=(B, ndof * int(np.prod(nc)))), dtype=dtype,
+                            device=dev)
+        r = torch.as_tensor(rng.normal(size=(B, ndof * int(np.prod(nf)))), dtype=dtype,
+                            device=dev)
+        return ps, pts, u, r
+
+    hat_transfer.launches = 0
+    calls = 0
+    for B, cells, ratio, ndof in TRANSFER_SHAPES:
+        for dtype in (torch.float32, torch.float64):
+            ps, pts, u, r = case(B, cells, ratio, ndof, dtype, seed=B + sum(cells))
+            got = {"prolong": hat_transfer(u, ps, cells, ratio, ndof, adjoint=False),
+                   "restrict": hat_transfer(r, pts, cells, ratio, ndof, adjoint=True)}
+            again = {"prolong": hat_transfer(u, ps, cells, ratio, ndof, adjoint=False),
+                     "restrict": hat_transfer(r, pts, cells, ratio, ndof, adjoint=True)}
+            want = {"prolong": hat_transfer_reference(u, ps, cells, ratio, adjoint=False),
+                    "restrict": hat_transfer_reference(r, pts, cells, ratio, adjoint=True)}
+            calls += 4
+            torch.cuda.synchronize()
+            for way in ("prolong", "restrict"):
+                err = rel_err(got[way], want[way])
+                key = f"{way} {B}x{'x'.join(map(str, cells))} r{ratio} d{ndof} {dtype}"
+                if not err <= REL_TOL[dtype]:
+                    fail(f"hat {key}: rel err vs plain {err} > {REL_TOL[dtype]}")
+                if not torch.equal(got[way], again[way]):
+                    fail(f"hat {key}: two calls are not bitwise equal")
+                out["err"][key] = err
+                out["bitwise"][key] = bool(torch.equal(got[way], want[way]))
+            if dtype == torch.float64:
+                lhs = (got["prolong"] * r).sum(1)
+                rhs = (u * got["restrict"]).sum(1)
+                adj = float(((lhs - rhs).abs() / (u.norm(dim=1) * r.norm(dim=1))).max())
+                if not adj <= 1e-12:
+                    fail(f"hat {B}x{cells} r{ratio}: <P u, r> - <u, R r> {adj} > 1e-12")
+                out.setdefault("adjoint", 0.0)
+                out["adjoint"] = max(out["adjoint"], adj)
+    if hat_transfer.launches != calls:
+        fail(f"hat transfers launched {hat_transfer.launches} times in {calls} calls")
+    worst = {dt: max(v for k, v in out["err"].items() if k.endswith(str(dt)))
+             for dt in (torch.float32, torch.float64)}
+    at_cells = {k: v for k, v in out["bitwise"].items() if k.split(" ")[1] == "256x20x40"}
+    print(f"[48 hat transfer] ok: kernel vs plain max rel err f32 {worst[torch.float32]:.3e} "
+          f"(tol 2e-5), f64 {worst[torch.float64]:.3e} (tol 1e-12) over (B, cells, ratio, "
+          f"dofs) in {TRANSFER_SHAPES}; two calls bitwise equal; <P u, r> = <u, R r> to "
+          f"{out['adjoint']:.2e} (f64, tol 1e-12); bitwise equal to plain at the cells' shape: "
+          f"{at_cells}; bitwise over all {sum(out['bitwise'].values())} of "
+          f"{len(out['bitwise'])}", flush=True)
+
+    # the launch count of one fh batch on the benchmark cells' solver
+    model = build_fem_model(cooks_membrane_mesh(160, 80), device=dev, dense=False)
+    coarse = build_fem_model(cooks_membrane_mesh(40, 20), device=dev, dense=True)
+    solve = make_two_level_solver(model, coarse, 40, 20, 4, cg_dtype=torch.float32,
+                                  refine_iters=1, tol=3e-3, maxiter=400, use_stencil=True)
+    cfg = dataclasses.replace(ProblemConfig(), node_id=model.nnodes, ele_id=40 * 160 + 12)
+    fh = make_fh_fun(model, cfg, solve_free=solve)
+    thetas = torch.randn((256, 2), generator=torch.Generator().manual_seed(48),
+                         dtype=torch.float64).to(dev)
+    hat_transfer.launches = spectral_apply_batched.launches = 0
+    with torch.no_grad():
+        fh(thetas)
+    torch.cuda.synchronize()
+    out["launches_fh"] = hat_transfer.launches
+    prec_calls = spectral_apply_batched.launches  # one coarse apply a preconditioner call
+    if not (prec_calls > 0 and out["launches_fh"] == 2 * prec_calls):
+        fail(f"one 160x80 fh batch: {out['launches_fh']} transfer launches for {prec_calls} "
+             "preconditioner calls (want two each)")
+    print(f"[48 hat transfer] ok: one 160x80 fh batch (B = 256): {out['launches_fh']} transfer "
+          f"launches, 2 x {prec_calls} preconditioner calls", flush=True)
+
+    # device time beside the bound and the plain version's
+    saved = hat_transfer.launches
+    for B, cells, ratio, ndof in TRANSFER_TIMED:
+        for dtype in (torch.float32, torch.float64):
+            ps, pts, u, r = case(B, cells, ratio, ndof, dtype, seed=1)
+            bound = hat_least_time(B, cells, ratio, ndof, dtype)
+            plan = launch_plan(B, cells, ratio, ndof, u.element_size())
+            for way, x, mats, adjoint in (("prolong", u, ps, False), ("restrict", r, pts, True)):
+                t = kernel_times(
+                    lambda: hat_transfer(x, mats, cells, ratio, ndof, adjoint=adjoint),
+                    lambda: hat_transfer_reference(x, mats, cells, ratio, adjoint=adjoint),
+                    bound)
+                out["ms"][B, cells, dtype, way] = t
+                print(f"[48 times] hat {way} (B={B}, cells {cells}, ratio {ratio}, {ndof} dofs) "
+                      f"{dtype}, {plan}: device kernel {t['ms']:.4f} ms, plain "
+                      f"{t['plain_ms']:.4f} ms; eager kernel {t['ms_eager']:.4f} ms; bound "
+                      f"{t['bound_ms']:.4f} ms ({t['bound_by']}), {100 * t['share_of_bound']:.1f} "
+                      f"% of it, on {card}", flush=True)
+    hat_transfer.launches = saved
+    print(f"[48 hat transfer] {time.perf_counter() - t0:.2f} s", flush=True)
     return out
 
 

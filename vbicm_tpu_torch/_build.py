@@ -1,9 +1,9 @@
 """Build and load the package's CUDA kernels.
 
 The sources under ``csrc/`` (the spectral apply, the 2-D stencil matvec,
-the banded tensor-core stencil, the 3-D stencil matvec, the element matvec
-and the FMA-ceiling probe) have a plain C interface; shared device code
-sits in ``csrc/*.cuh`` headers. At first use each source is compiled with
+the banded tensor-core stencil, the 3-D stencil matvec, the element matvec,
+the hat transfers and the FMA-ceiling probe) have a plain C interface;
+shared device code sits in ``csrc/*.cuh`` headers. At first use each source is compiled with
 ``nvcc`` for ``sm_90a``, all at once in parallel processes, and the
 objects are linked into one shared library under ``build/vbicm_tpu_torch/``
 at the root of the checkout, loaded with ``ctypes``. The library's file name carries a hash of the sources, headers
@@ -64,6 +64,12 @@ _SIGNATURES = {
     # (B, ndof, edof, out[3]) -> cudaError_t
     "vbicm_element_affine_plan_f32": [_INT, _INT, _INT, _INTS],
     "vbicm_element_affine_plan_f64": [_INT, _INT, _INT, _INTS],
+    # (fine, coarse, B, naxes, ndof, r, cz, cy, cx, tz, ty, stream) -> cudaError_t
+    "vbicm_hat_restrict_f32": [_PTR] * 2 + [_INT] * 9 + [_PTR],
+    "vbicm_hat_restrict_f64": [_PTR] * 2 + [_INT] * 9 + [_PTR],
+    # (coarse, fine, B, naxes, ndof, r, cz, cy, cx, lines, stream) -> cudaError_t
+    "vbicm_hat_prolong_f32": [_PTR] * 2 + [_INT] * 8 + [_PTR],
+    "vbicm_hat_prolong_f64": [_PTR] * 2 + [_INT] * 8 + [_PTR],
 }
 
 

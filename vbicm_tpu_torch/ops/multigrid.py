@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from ..utils.trace import span
+from .hat_transfer_kernel import grid_nodes, hat_transfer
 
 
 def cooks_prolongation(nx_c: int, ny_c: int, ratio: int):
@@ -64,19 +65,22 @@ def make_grid_transfer_nd(cells_coarse, ratio: int, ndof_node: int, *, device="c
     first (``(nz, ny, nx)`` for the hex8 box numbering of
     ``mesh/solid3d.py``), with the ``ndof_node`` dof channel fastest. The
     prolongation applies each axis's 1-D hat matrix (:func:`hat_matrix`) in
-    turn, as one batched matrix product; the restriction applies the
-    transposed matrices in the reverse order, so the pair is exactly
-    adjoint. Both follow their input's dtype (float32 or float64). On the
-    Cook's grid, ``(ny_c, nx_c)`` with 2 dofs a node, they equal the JAX
-    package's conv-form transfers (a depthwise hat-kernel convolution with
-    ``lhs_dilation=ratio``, and the same kernel at stride ``ratio`` for the
-    restriction): the convolution's edge clipping is the hat matrices'
-    clipped rows.
+    turn; the restriction applies the transposed matrices in the reverse
+    order, so the pair is exactly adjoint. Both follow their input's dtype
+    (float32 or float64). On the CPU each axis is one batched matrix product
+    (``ops.hat_transfer_kernel.hat_transfer_reference``); on a CUDA device
+    each transfer is one launch of ``csrc/hat_transfer.cu``
+    (``ops.hat_transfer_kernel.hat_transfer``), the same sums in the same
+    order of axes and taps. On the Cook's grid, ``(ny_c, nx_c)`` with 2 dofs
+    a node, they equal the JAX package's conv-form transfers (a depthwise
+    hat-kernel convolution with ``lhs_dilation=ratio``, and the same kernel
+    at stride ``ratio`` for the restriction): the convolution's edge
+    clipping is the hat matrices' clipped rows.
 
     prolong: (B, ndof_node * prod(c + 1)) -> (B, ndof_node * prod(c*r + 1));
     restrict: the reverse."""
-    nc = [c + 1 for c in cells_coarse]
-    nf = [c * ratio + 1 for c in cells_coarse]
+    cells_coarse = tuple(int(c) for c in cells_coarse)
+    nf, nc = grid_nodes(cells_coarse, ratio)
     mats = {}
     for dt in (torch.float32, torch.float64):
         ps = [torch.as_tensor(hat_matrix(f, c, ratio), dtype=dt, device=device)
@@ -84,22 +88,12 @@ def make_grid_transfer_nd(cells_coarse, ratio: int, ndof_node: int, *, device="c
         mats[dt] = (ps, [p.T.contiguous() for p in ps])
 
     def prolong(u_c):
-        ps, _ = mats[u_c.dtype]
-        B = u_c.shape[0]
-        t = u_c
-        for k, p in enumerate(ps):
-            # axes before k are fine already, axes after k still coarse
-            t = torch.matmul(p, t.reshape(B * int(np.prod(nf[:k])), nc[k], -1))
-        return t.reshape(B, -1)
+        return hat_transfer(u_c, mats[u_c.dtype][0], cells_coarse, ratio, ndof_node,
+                            adjoint=False)
 
     def restrict(r_f):
-        _, pts = mats[r_f.dtype]
-        B = r_f.shape[0]
-        t = r_f
-        for k in reversed(range(len(pts))):
-            # axes before k are fine still, axes after k coarse already
-            t = torch.matmul(pts[k], t.reshape(B * int(np.prod(nf[:k])), nf[k], -1))
-        return t.reshape(B, -1)
+        return hat_transfer(r_f, mats[r_f.dtype][1], cells_coarse, ratio, ndof_node,
+                            adjoint=True)
 
     return prolong, restrict
 
