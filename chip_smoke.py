@@ -15,7 +15,8 @@ before and read just after:
   float64 golden (tests/fixtures/scaled_160x80_golden.json), its adjoint
   against the dense solve at 40x20, and dataset generation and the two-step
   trainer through the two-level observation operator (float32 CG + one
-  float64 refinement, 256 full-order solves per step-1 step);
+  float64 refinement, 256 full-order solves per step-1 step; every CG loop
+  step two CG update launches, none plain);
 - the 3-D hex8 box (phases 13-17): the 27-point stencil kernel on grids up
   to 64x16x16 (56,355 dofs), the box two-level solve against the JAX
   package's float64 golden (tests/fixtures/scaled_3d_golden.json) for the
@@ -76,7 +77,14 @@ before and read just after:
   prolongation kernels against their plain version on the benchmark cells'
   160x80 grid, the 3-D boxes and odd small grids at ratios 2-4, two calls
   bitwise equal, adjointness in float64, the launches of one 160x80 fh
-  batch (two a preconditioner call) and device time beside the bound.
+  batch (two a preconditioner call) and device time beside the bound;
+- CG's vector updates (phase 49, ``cg_update_path``): the kernel pair
+  against its plain version at the cells' (256, 26,082), small, single-lane,
+  odd and ragged shapes with lanes in every state (active, converged,
+  frozen, NaN residual, breakdowns), two launches bitwise equal, device time
+  beside the bound, pcg on the 160x80 stencil path against the plain loop
+  (per-lane iterations, the solution) and two launches a loop step on an fh
+  batch with its adjoint.
 
 Phase 1 fails if a spectral, stencil, quad4 element or banded kernel spills
 registers; phases 2, 8, 13, 18 and 25 hold two calls of a kernel bitwise
@@ -630,6 +638,7 @@ def main():
     fams = trainer_path(dev, card, model, ds, thetas, fh64, steps_per_s)
     field = field_path(dev, card)
     transfer = transfer_path(dev, card)
+    cgu = cg_update_path(dev, card)
 
     times[BOX_COARSE_SHAPE, torch.float32] = box["spectral_ms"][torch.float32]
     times[BOX_COARSE_SHAPE, torch.float64] = box["spectral_ms"][torch.float64]
@@ -803,6 +812,25 @@ def main():
         **{f"{k}_f64": t64["restrict"][k] for k in ("ms", "plain_ms", "bound_ms")},
         **{f"{k}_prolong_f64": t64["prolong"][k] for k in ("ms", "plain_ms")},
     })
+    c32 = {way: cgu["ms"][f32, way == "beta"] for way in ("alpha", "beta")}
+    c64 = {way: cgu["ms"][f64, way == "beta"] for way in ("alpha", "beta")}
+    records.append({
+        "name": "cg_update",
+        "route": "cuda",
+        "source": "vbicm_tpu_torch/csrc/cg_update.cu",
+        "replaces": None,  # the JAX package's CG updates are XLA ops
+        "launches": scaled["cg_update_launches"] + cgu["fh_counters"]["cg_update.launches"],
+        "launches_by_path": {"scaled_160x80": scaled["cg_update_launches"],
+                             "fh_160x80_with_adjoint": cgu["fh_counters"]["cg_update.launches"]},
+        "max_rel_err": max(cgu["err"].values()),
+        **{k: c32["alpha"][k] for k in ("ms", "plain_ms", "ms_eager", "bound_ms", "bound_by",
+                                        "share_of_bound")},
+        "library_ms": None,  # no one PyTorch call computes a step
+        **{f"{k}_beta": c32["beta"][k] for k in ("ms", "plain_ms", "ms_eager", "bound_ms",
+                                                 "share_of_bound")},
+        **{f"{k}_f64": c64["alpha"][k] for k in ("ms", "plain_ms", "bound_ms")},
+        **{f"{k}_beta_f64": c64["beta"][k] for k in ("ms", "plain_ms", "bound_ms")},
+    })
     print(card)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
@@ -828,6 +856,7 @@ def scaled_path(dev, card):
     )
     from vbicm_tpu_torch.prob.datagen import generate_data_fem
     from vbicm_tpu_torch.solver import make_fh_fun, make_solver, make_two_level_solver
+    from vbicm_tpu_torch.utils import trace
     from vbicm_tpu_torch.vi.train import TwoStepTrainer
 
     out = {}
@@ -927,14 +956,19 @@ def scaled_path(dev, card):
     spectral_apply_batched.launches = 0
     stencil_affine_matvec.launches = 0
     hat_transfer.launches = 0
+    before = trace.counters()
     ds = generate_data_fem(torch.Generator().manual_seed(0), fh, n_sam=256, ne_sam=4, device=dev,
                            sig_e=cfg.sig_e, sig_eta=cfg.sig_eta, chunk=2048)
     trainer = TwoStepTrainer(None, cfg, tcfg, fh_batch=fh, device=dev)
     res = trainer.fit(ds.y_data, ds.e_data, torch.Generator().manual_seed(1))
     torch.cuda.synchronize()
+    after = trace.counters()
     out["spectral_launches"] = spectral_apply_batched.launches
     out["stencil_launches"] = stencil_affine_matvec.launches
     out["transfer_launches"] = hat_transfer.launches
+    cg = {k: after.get(k, 0) - before.get(k, 0)
+          for k in ("cg_update.launches", "pcg.steps.fused", "pcg.steps.plain")}
+    out["cg_update_launches"] = cg["cg_update.launches"]
     preds = trainer.predict(res.theta_net, res.z_net, ds.y_data[:8])
     losses = np.concatenate([res.hist_step1, res.hist_step2])
     if not np.all(np.isfinite(losses)):
@@ -945,10 +979,15 @@ def scaled_path(dev, card):
         fail(f"the scaled trainer launched spectral {out['spectral_launches']}, stencil "
              f"{out['stencil_launches']}, transfer {out['transfer_launches']} times; all must "
              "be > 0")
+    if not (cg["cg_update.launches"] > 0 and cg["pcg.steps.plain"] == 0
+            and cg["cg_update.launches"] == 2 * cg["pcg.steps.fused"]):
+        fail(f"the scaled datagen and trainer: CG counters {cg} (want 2 CG update launches a "
+             "fused loop step, no plain step)")
     print(f"[11 scaled trainer] ok: 160x80, n=256 x ne_sam 4, 2 + 2 epochs at batch 64; step1 "
           f"losses {res.hist_step1.tolist()}, step2 losses {res.hist_step2.tolist()}; kernel "
           f"launches stencil {out['stencil_launches']}, spectral {out['spectral_launches']}, "
-          f"transfer {out['transfer_launches']}", flush=True)
+          f"transfer {out['transfer_launches']}, CG update {cg['cg_update.launches']} "
+          f"({cg['pcg.steps.fused']} fused loop steps, {cg['pcg.steps.plain']} plain)", flush=True)
 
     # 12. times (records, not a claim), each beside the card's name and limit
     steps = math.ceil(ds.n_sam / tcfg.batch_size) * (tcfg.num_epoch1 - 1)
@@ -2837,6 +2876,313 @@ def transfer_path(dev, card):
                       f"% of it, on {card}", flush=True)
     hat_transfer.launches = saved
     print(f"[48 hat transfer] {time.perf_counter() - t0:.2f} s", flush=True)
+    return out
+
+
+
+# CG's vector updates (phase 49), (B, n): the benchmark cells' 160x80 lanes
+# (26,082 values, 256 a batch), a small batch, one long lane, an odd n (rows
+# not aligned to a pair load) and the 3-D 32x8x8 box's 8,019 dofs at a
+# ragged batch
+CG_MAIN = (256, 26082)
+CG_SHAPES = [CG_MAIN, (7, 1000), (1, 26082), (5, 1001), (300, 8019)]
+# a lane's state before the step, by lane index modulo 6
+CG_LANE_STATES = ("active", "converged", "frozen", "nan residual", "alpha breakdown",
+                  "beta breakdown")
+CG_TOL = {torch.float32: 2e-5, torch.float64: 1e-12}
+# pcg through the kernel pair against the plain loop on the cells' solver
+# (CG tol 3e-3, one float64 refinement): the largest lane's relative
+# distance between the solutions; a lane's iterations may differ by one
+CG_PCG_TOL = {torch.float32: 1e-5, torch.float64: 1e-10}
+
+
+def cg_lane_state(B, n, dtype, dev, seed, timing=False):
+    """A CG loop's state before a step, the step's kp and the sign of its
+    z = sign 0.5 r: lanes in the states of CG_LANE_STATES by lane index
+    modulo 6 (a breakdown at the alpha step with an infinity in p, so that
+    0 times it is NaN; at the beta step a negative (r, z)), or with
+    ``timing`` every lane active and staying so. rz is p.kp times a factor
+    in [0.5, 1.5), so that alpha and beta are of order one and both terms
+    of each update count. Returns (state, kp, sign), state the
+    (x, r, p, rz, rr, thresh, it, dead) of ``CgUpdate*``."""
+    from vbicm_tpu_torch.ops.cg_update_kernel import dot
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x, r, p = (torch.randn((B, n), generator=g, device=dev, dtype=dtype) for _ in range(3))
+    kp = p * (torch.rand((B, n), generator=g, device=dev, dtype=dtype) + 0.5)
+    rz = dot(p, kp) * (torch.rand(B, generator=g, device=dev, dtype=dtype) + 0.5)
+    rr = dot(r, r)
+    thresh = torch.zeros_like(rr) if timing else 1e-6 * rr
+    it = torch.randint(0, 50, (B,), generator=g, device=dev)
+    dead = torch.zeros(B, dtype=torch.bool, device=dev)
+    sign = torch.ones(B, dtype=dtype, device=dev)
+    if not timing:
+        lanes = torch.arange(B, device=dev) % len(CG_LANE_STATES)
+        thresh = torch.where(lanes == 1, 2 * rr, thresh)
+        dead |= lanes == 2
+        nan = lanes == 3
+        r[nan, 3] = float("nan")
+        rr = torch.where(nan, float("nan"), rr)
+        brk = lanes == 4
+        kp = torch.where(brk[:, None], -kp, kp)
+        p[brk, 7] = float("inf")
+        kp[brk, 7] = -float("inf")
+        sign = torch.where(lanes == 5, -1.0, sign)
+    return (x, r, p, rz, rr, thresh, it, dead), kp, sign
+
+
+def cg_one_step(update, state, kp, sign):
+    """One loop step through ``update`` (``CgUpdateKernel`` or
+    ``CgUpdatePlain``) on a copy of ``state``, with z = sign 0.5 r; the
+    state after it (x, r, p, rz, rr, it, dead, active)."""
+    u = update(*(t.clone() for t in state))
+    r_p = u.alpha(kp)
+    u.beta(sign[:, None] * (0.5 * r_p))
+    return {"x": u.x, "r": u.r, "p": u.p, "rz": u.rz, "rr": u.rr, "it": u.it, "dead": u.dead,
+            "active": u.active}
+
+
+def cg_bits(t):
+    """The tensor's bits, so that NaNs compare equal."""
+    return t.view({torch.float32: torch.int32, torch.float64: torch.int64}.get(t.dtype, t.dtype))
+
+
+def cg_state_err(got, want, before=None):
+    """Largest error of the float tensors relative to max|want| over their
+    finite entries (inf where NaNs or infinities sit elsewhere), and
+    whether the flags and counts are equal. With ``before`` (the state the
+    step started from, x, r, p first), also the error of the updates to x,
+    r and p relative to the largest update, so that a wrong alpha or beta
+    shows however small the step."""
+    err = 0.0
+    for k in ("x", "r", "p", "rz", "rr"):
+        g, w = got[k], want[k]
+        fin = torch.isfinite(w)
+        if not torch.equal(fin, torch.isfinite(g)) or not torch.equal(g[~fin].isnan(),
+                                                                       w[~fin].isnan()):
+            return float("inf"), False
+        if bool(fin.any()):
+            err = max(err, float((g[fin] - w[fin]).abs().max() / w[fin].abs().max()))
+    for k, b in zip(("x", "r", "p"), before or ()):
+        fin = torch.isfinite(want[k]) & torch.isfinite(b)
+        dg, dw = got[k][fin] - b[fin], want[k][fin] - b[fin]
+        top = float(dw.abs().max()) if dw.numel() else 0.0
+        gap = float((dg - dw).abs().max()) if dw.numel() else 0.0
+        err = max(err, gap / top if top > 0 else (0.0 if gap == 0 else float("inf")))
+    flags = all(torch.equal(got[k], want[k]) for k in ("it", "dead", "active"))
+    return err, flags
+
+
+def cg_least_time(B, n, dtype, beta):
+    """least_time of one step on B active lanes of n values: the alpha step
+    reads p, kp, x, r and writes x, r (8 flops a value: the dot, two updates,
+    r.r), the beta step reads r, z, p and writes p (4 flops a value); each
+    lane's scalars read and written once."""
+    itemsize = torch.finfo(dtype).bits // 8
+    vectors, flops = (4, 4) if beta else (6, 8)
+    scalars = B * (4 * itemsize + 8 + 3) if beta else B * (2 * itemsize + 2)
+    return least_time(vectors * B * n * itemsize + scalars, flops * B * n, dtype)
+
+
+def cg_update_path(dev, card):
+    """Phase 49: CG's vector updates (csrc/cg_update.cu) against their plain
+    version with lanes in every state (CG_TOL of max|want|; flags and counts
+    equal), two launches bitwise equal, no spills in the plan's instances,
+    device time (CUDA graphs) beside the bound and the plain version's at
+    CG_MAIN, and pcg on the benchmark cells' 160x80 stencil path against the
+    plain loop (per-lane iterations within one, the solution within
+    CG_PCG_TOL) with two launches a loop step."""
+    import dataclasses
+    import re
+
+    import vbicm_tpu_torch.ops.solve as solve_mod
+    from vbicm_tpu_torch import _build
+    from vbicm_tpu_torch.config import ProblemConfig
+    from vbicm_tpu_torch.mesh import cooks_membrane_mesh
+    from vbicm_tpu_torch.model import build_fem_model
+    from vbicm_tpu_torch.ops.cg_update_kernel import (
+        CgUpdateKernel,
+        CgUpdatePlain,
+        cg_update_reference_alpha,
+        cg_update_reference_beta,
+        kernel_fit,
+        launch_plan,
+    )
+    from vbicm_tpu_torch.ops.element import material_coeffs
+    from vbicm_tpu_torch.solver import make_fh_fun, make_two_level_solver
+    from vbicm_tpu_torch.utils import trace
+
+    t0 = time.perf_counter()
+    out = {"err": {}, "ms": {}}
+    f32, f64 = torch.float32, torch.float64
+
+    # the build: every instance without spills
+    _, _, log = _build.load_library()
+    inst = {k: v for k, v in ptxas_by_kernel(log).items() if re.search(r"cg_(alpha|beta)_step", k)}
+    if len(inst) != 2 * 2:  # (alpha, beta) x (f32, f64)
+        fail(f"expected 4 CG update kernel instances in the ptxas log, found {sorted(inst)}")
+    spills = {k: v for k, v in inst.items() if v[1] or v[2]}
+    if spills:
+        fail(f"CG update kernels spill: {spills}")
+    plan = launch_plan(CG_MAIN[1])
+    fits = {}
+    for dtype in (f32, f64):
+        for beta in (False, True):
+            fits[dtype, beta] = kernel_fit(dtype, beta, plan.cluster)
+            if fits[dtype, beta] is None or fits[dtype, beta][0] < 1:
+                fail(f"CG update kernel {dtype} beta={beta} {plan}: fit {fits[dtype, beta]} "
+                     "(clusters resident, registers, local bytes)")
+    print(f"[49 cg update] build: {len(inst)} instances, none spilling; the plan at {CG_MAIN}, "
+          f"{plan}: " + "; ".join(f"{dt} {'beta' if b else 'alpha'} clusters resident {v[0]}, "
+                                  f"{v[1]} regs" for (dt, b), v in fits.items()), flush=True)
+
+    # the kernel pair against the plain version, lanes in every state
+    before = trace.counters().get("cg_update.launches", 0)
+    calls = 0
+    for B, n in CG_SHAPES:
+        for dtype in (f32, f64):
+            state, kp, sign = cg_lane_state(B, n, dtype, dev, seed=B + n)
+            got = cg_one_step(CgUpdateKernel, state, kp, sign)
+            again = cg_one_step(CgUpdateKernel, state, kp, sign)
+            want = cg_one_step(CgUpdatePlain, state, kp, sign)
+            calls += 4
+            torch.cuda.synchronize()
+            err, flags = cg_state_err(got, want, before=state)
+            key = f"{B}x{n} {dtype}"
+            if not (err <= CG_TOL[dtype] and flags):
+                fail(f"cg update {key}: rel err vs plain {err} (tol {CG_TOL[dtype]}), flags and "
+                     f"counts equal: {flags}")
+            if not all(torch.equal(cg_bits(got[k]), cg_bits(again[k])) for k in got):
+                fail(f"cg update {key}: two launches are not bitwise equal")
+            out["err"][key] = err
+    launched = trace.counters().get("cg_update.launches", 0) - before
+    if launched != calls:
+        fail(f"cg update: {launched} launches counted for {calls}")
+    worst = {dt: max(v for k, v in out["err"].items() if k.endswith(str(dt))) for dt in (f32, f64)}
+    print(f"[49 cg update] ok: kernel pair vs plain, lanes {CG_LANE_STATES} by index mod 6, max "
+          f"rel err (of the state and of the updates to x, r, p, each of its own max) f32 "
+          f"{worst[f32]:.3e} (tol {CG_TOL[f32]}), f64 {worst[f64]:.3e} (tol "
+          f"{CG_TOL[f64]}) over (B, n) in {CG_SHAPES}; flags, counts and NaNs equal; two "
+          "launches bitwise equal", flush=True)
+
+    # device time beside the bound and the plain version's
+    for dtype in (f32, f64):
+        B, n = CG_MAIN
+        state, kp, sign = cg_lane_state(B, n, dtype, dev, seed=3, timing=True)
+        u = CgUpdateKernel(*(t.clone() for t in state))
+        x, r, p, rz, _, thresh, it, dead = (t.clone() for t in state)
+        active = ~dead
+        bad = torch.zeros_like(dead)
+        u.alpha(kp)  # the partials the beta step reads
+        for beta in (False, True):
+            if beta:
+                kernel = lambda: u.beta(u.r)  # noqa: E731
+                plain = lambda: cg_update_reference_beta(  # noqa: E731
+                    r, p, r, r, rz, it, dead, active, bad, thresh)
+            else:
+                kernel = lambda: u.alpha(kp)  # noqa: E731
+                plain = lambda: cg_update_reference_alpha(x, r, p, kp, rz, active)  # noqa: E731
+            t = kernel_times(kernel, plain, cg_least_time(B, n, dtype, beta))
+            if not bool(u.active.all()):
+                fail("cg update timing: a lane went inactive")
+            out["ms"][dtype, beta] = t
+            print(f"[49 times] cg {'beta' if beta else 'alpha'} step (B={B}, n={n}) {dtype}, "
+                  f"{u.plan}: device kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms; eager "
+                  f"kernel {t['ms_eager']:.4f} ms; bound {t['bound_ms']:.4f} ms ({t['bound_by']}), "
+                  f"{100 * t['share_of_bound']:.1f} % of it, on {card}", flush=True)
+
+    # the host's cost a launch: alpha and beta steps back to back at a tiny
+    # lane, where the host is the slower; the plain version's a step beside
+    state, kp, sign = cg_lane_state(1, 1000, f32, dev, seed=5, timing=True)
+    host = {}
+    for way in ("kernel", "plain"):
+        u = (CgUpdateKernel if way == "kernel" else CgUpdatePlain)(*(t.clone() for t in state))
+        for reps in (50, 2000):  # a warm-up, then the timed run
+            torch.cuda.synchronize()
+            tic = time.perf_counter()
+            for _ in range(reps):
+                u.beta(sign[:, None] * u.alpha(kp))
+            torch.cuda.synchronize()
+            host[way] = (time.perf_counter() - tic) / reps * 1e6
+    out["host_us_a_step"] = host
+    print(f"[49 times] host time a loop step's vector work at (1, 1000) f32 (two launches, the "
+          f"z it reads made by one more op): kernel pair {host['kernel']:.1f} us, plain "
+          f"{host['plain']:.1f} us, on {card}", flush=True)
+
+    # pcg on the benchmark cells' solver against the plain loop
+    def plain_pcg(matvec, b, prec, *, tol, maxiter):
+        return solve_mod._pcg(matvec, b, prec, tol, maxiter, CgUpdatePlain, "pcg.steps.plain")
+
+    model = build_fem_model(cooks_membrane_mesh(160, 80), device=dev, dense=False)
+    coarse = build_fem_model(cooks_membrane_mesh(40, 20), device=dev, dense=True)
+    cfg = dataclasses.replace(ProblemConfig(), node_id=model.nnodes, ele_id=40 * 160 + 12)
+    thetas = torch.randn((256, 2), generator=torch.Generator().manual_seed(49),
+                         dtype=torch.float64).to(dev)
+    tm = torch.tensor(cfg.theta_map.theta_mean, dtype=torch.float64, device=dev)
+    ts = torch.tensor(cfg.theta_map.theta_std, dtype=torch.float64, device=dev)
+    E = torch.exp(ts[0] * thetas[:, 0] + tm[0])
+    v = 0.5 * torch.sigmoid(ts[1] * thetas[:, 1] + tm[1])
+    c0, c1 = material_coeffs(model.stype, E, v)
+    out["pcg"] = {}
+    for cg_dtype in (f32, f64):
+        solve = make_two_level_solver(model, coarse, 40, 20, 4, cg_dtype=cg_dtype,
+                                      refine_iters=1, tol=3e-3, maxiter=400, use_stencil=True)
+        solver = solve.solver
+        runs = {}
+        for way in ("fused", "plain"):
+            saved = solve_mod.pcg
+            if way == "plain":
+                solve_mod.pcg = plain_pcg
+            try:
+                before = trace.counters()
+                with torch.no_grad():
+                    u = solve(c0, c1)
+                torch.cuda.synchronize()
+                after = trace.counters()
+            finally:
+                solve_mod.pcg = saved
+            moved = {k: after.get(k, 0) - before.get(k, 0)
+                     for k in ("cg_update.launches", "pcg.steps.fused", "pcg.steps.plain")}
+            runs[way] = (u, [it.clone() for it in solver.last_cg_iters], moved)
+        (uf, itf, mf), (up, itp, mp) = runs["fused"], runs["plain"]
+        if not (mf["pcg.steps.fused"] > 0 and mf["pcg.steps.plain"] == 0
+                and mf["cg_update.launches"] == 2 * mf["pcg.steps.fused"]):
+            fail(f"pcg {cg_dtype} on the 160x80 stencil path: counters {mf} (want 2 launches "
+                 "a fused step, no plain step)")
+        if mp["cg_update.launches"] or mp["pcg.steps.fused"]:
+            fail(f"the plain loop launched the kernels: {mp}")
+        dit = [int((a - b).abs().max()) for a, b in zip(itf, itp)]
+        nlanes = [int((a != b).sum()) for a, b in zip(itf, itp)]
+        means = [(float(a.double().mean()), float(b.double().mean())) for a, b in zip(itf, itp)]
+        xrel = float(((uf - up).norm(dim=1) / up.norm(dim=1)).max())
+        out["pcg"][cg_dtype] = dict(iters_max_diff=dit, lanes_differing=nlanes, iters_mean=means,
+                                    x_rel=xrel, counters=mf)
+        print(f"[49 cg update] pcg on the 160x80 stencil path, B = 256, CG {cg_dtype} tol 3e-3 + 1 "
+              f"refinement: per-lane iterations (CG, refinement) fused vs plain max |diff| {dit}, "
+              f"lanes differing {nlanes}, means {means}; solution max lane rel diff {xrel:.3e}; "
+              f"counters {mf} (2 launches a loop step)", flush=True)
+        if not (xrel <= CG_PCG_TOL[cg_dtype] and max(dit) <= 1):
+            fail(f"pcg {cg_dtype} fused vs plain: solutions differ by {xrel} of their norm (tol "
+                 f"{CG_PCG_TOL[cg_dtype]}), a lane's iterations by up to {dit} (tol 1)")
+
+    # both cells' paths: an fh batch forward and backward through the solve
+    solve = make_two_level_solver(model, coarse, 40, 20, 4, cg_dtype=f32, refine_iters=1,
+                                  tol=3e-3, maxiter=400, use_stencil=True)
+    fh = make_fh_fun(model, cfg, solve_free=solve)
+    th = thetas.clone().requires_grad_(True)
+    before = trace.counters()
+    y, h = fh(th)
+    (y.sum() + h.sum()).backward()
+    torch.cuda.synchronize()
+    after = trace.counters()
+    moved = {k: after.get(k, 0) - before.get(k, 0)
+             for k in ("cg_update.launches", "pcg.steps.fused", "pcg.steps.plain")}
+    if not (moved["pcg.steps.fused"] > 0 and moved["pcg.steps.plain"] == 0
+            and moved["cg_update.launches"] == 2 * moved["pcg.steps.fused"]):
+        fail(f"one 160x80 fh batch with its adjoint: counters {moved}")
+    out["fh_counters"] = moved
+    print(f"[49 cg update] ok: one 160x80 fh batch (B = 256) with its adjoint: {moved}; "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
     return out
 
 

@@ -97,10 +97,11 @@ def tool():
     return module
 
 
-def _delta(before):
-    """The counters that moved since the snapshot ``before``."""
+def _delta(before, prefix=""):
+    """The counters named ``prefix...`` that moved since the snapshot
+    ``before``."""
     return {k: v - before.get(k, 0) for k, v in trace.counters().items()
-            if v != before.get(k, 0)}
+            if v != before.get(k, 0) and k.startswith(prefix)}
 
 
 def test_spans_off_never_call_record_function(problem, monkeypatch):
@@ -249,16 +250,19 @@ def test_pcg_loop_is_the_loops_walk(lanes, maxiter):
 
 def test_host_reads_of_datagen_and_epochs_are_counted(problem):
     """The datagen read-backs are counted, two a chunk; the epoch loop's
-    loss read is on no benchmark cell's path and counts nothing."""
+    loss read is on no benchmark cell's path and counts nothing (the
+    solves' CG loop steps count under ``pcg.steps.*``, not as reads)."""
     fh, _, trainer = problem
     before = trace.counters()
     generate_data_fem(torch.Generator().manual_seed(2), fh, n_sam=10, ne_sam=2, device="cpu",
                       chunk=4)
-    assert _delta(before) == {"host.sync.datagen_readback": 2 * math.ceil(10 / 4)}
+    assert _delta(before, "host.") == {"host.sync.datagen_readback": 2 * math.ceil(10 / 4)}
+    assert set(_delta(before)) == {"host.sync.datagen_readback", "pcg.steps.plain"}
     y, e = _inputs(problem)
     before = trace.counters()
     trainer.train_step1(y.numpy(), e.numpy(), torch.Generator().manual_seed(0), num_epochs=2)
-    assert _delta(before) == {}
+    assert _delta(before, "host.") == {}
+    assert set(_delta(before)) == {"pcg.steps.plain"}
 
 
 # A synthetic trace. Host events: (name, thread, start, end, correlation id,

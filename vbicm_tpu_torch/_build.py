@@ -2,7 +2,7 @@
 
 The sources under ``csrc/`` (the spectral apply, the 2-D stencil matvec,
 the banded tensor-core stencil, the 3-D stencil matvec, the element matvec,
-the hat transfers and the FMA-ceiling probe) have a plain C interface;
+the hat transfers, CG's vector updates and the FMA-ceiling probe) have a plain C interface;
 shared device code sits in ``csrc/*.cuh`` headers. At first use each source is compiled with
 ``nvcc`` for ``sm_90a``, all at once in parallel processes, and the
 objects are linked into one shared library under ``build/vbicm_tpu_torch/``
@@ -70,6 +70,14 @@ _SIGNATURES = {
     # (coarse, fine, B, naxes, ndof, r, cz, cy, cx, lines, stream) -> cudaError_t
     "vbicm_hat_prolong_f32": [_PTR] * 2 + [_INT] * 8 + [_PTR],
     "vbicm_hat_prolong_f64": [_PTR] * 2 + [_INT] * 8 + [_PTR],
+    # (state, kp or z, vec, stream) -> cudaError_t
+    "vbicm_cg_alpha_step_f32": [_PTR, _PTR, _INT, _PTR],
+    "vbicm_cg_alpha_step_f64": [_PTR, _PTR, _INT, _PTR],
+    "vbicm_cg_beta_step_f32": [_PTR, _PTR, _INT, _PTR],
+    "vbicm_cg_beta_step_f64": [_PTR, _PTR, _INT, _PTR],
+    # (beta, cluster, out[3]) -> cudaError_t
+    "vbicm_cg_fit_f32": [_INT, _INT, _INTS],
+    "vbicm_cg_fit_f64": [_INT, _INT, _INTS],
 }
 
 

@@ -41,8 +41,10 @@ import scipy.linalg
 import torch
 import torch.nn.functional as F
 
-from ..utils.trace import span
+from ..utils.trace import count, span
 from .assembly import dof_incidence, jacobi_diagonal
+from .cg_update_kernel import CgUpdateKernel, CgUpdatePlain
+from .cg_update_kernel import dot as _dot
 from .element_kernel import ElementOperator
 from .spectral_kernel import spectral_apply_batched
 
@@ -241,10 +243,6 @@ def make_spectral_affine_solver(parts, *, apply_dtype=None, refine_iters: int = 
 _CHECK_EVERY = 8
 
 
-def _dot(a, b):
-    return torch.einsum("bi,bi->b", a, b)
-
-
 def pcg(matvec, b, prec, *, tol=1e-12, maxiter=1000):
     """Batched preconditioned CG with the per-lane semantics of the JAX
     package's ``jax.vmap(pcg)``.
@@ -258,57 +256,57 @@ def pcg(matvec, b, prec, *, tol=1e-12, maxiter=1000):
 
     Every lane runs each iteration of the loop until the last one
     converges; :func:`pcg_loop` gives the loop's steps and its reads of
-    whether a lane is still active from the returned iterations. Spans
-    (``utils.trace``): ``cg.matvec``, ``cg.update`` and ``cg.check``
-    inside the loop.
+    whether a lane is still active from the returned iterations. A loop
+    step's vector work is ``ops.cg_update_kernel``'s two steps: on CUDA
+    tensors its kernel pair, two launches a step; on CPU tensors the plain
+    version. Spans (``utils.trace``): ``cg.matvec``, ``cg.update`` (around
+    each of the two steps) and ``cg.check`` inside the loop; counters
+    ``pcg.steps.fused`` and ``pcg.steps.plain``, the loop steps each way.
 
     Returns (x (B, n), iterations (B,) int64, residual_norm_sq (B,)).
     """
+    if b.device.type == "cpu":
+        return _pcg(matvec, b, prec, tol, maxiter, CgUpdatePlain, "pcg.steps.plain")
+    with torch.cuda.device(b.device):
+        return _pcg(matvec, b, prec, tol, maxiter, CgUpdateKernel, "pcg.steps.fused")
+
+
+def _pcg(matvec, b, prec, tol, maxiter, update, counter):
+    """:func:`pcg` with the loop's state and steps in ``update``
+    (``CgUpdatePlain`` or ``CgUpdateKernel``), its steps counted in
+    ``counter``."""
     rdt = b.dtype
     tiny = 1e-30 if rdt == torch.float32 else 1e-300
     scale = torch.sqrt(torch.clamp_min(_dot(b, b), tiny))
-    b = b / scale[:, None]
+    b = (b / scale[:, None]).contiguous()
     bnorm = torch.clamp_min(_dot(b, b), tiny)
     thresh = tol * tol * bnorm
     x = torch.zeros_like(b)
     r = b.clone()  # b - matvec(0)
     z = prec(r)
-    p = z.clone()
+    p = z.clone(memory_format=torch.contiguous_format)
     rz = _dot(r, z)
     rr = _dot(r, r)
     it = torch.zeros(b.shape[0], dtype=torch.int64, device=b.device)
     dead = torch.zeros(b.shape[0], dtype=torch.bool, device=b.device)
+    state = update(x, r, p, rz, rr, thresh, it, dead)
+    steps = 0
     for k in range(maxiter):
-        with span("cg.update"):
-            active = ~(rr <= thresh) & ~dead  # a NaN residual stays active, as in JAX
         if k % _CHECK_EVERY == 0:
             with span("cg.check"):
-                done = not bool(active.any())
+                done = not bool(state.active.any())
             if done:
                 break
         with span("cg.matvec"):
             kp = matvec(p)
         with span("cg.update"):
-            denom = _dot(p, kp)
-            bad = ~(denom > 0)  # catches <= 0 and NaN
-            alpha = torch.where(bad, 0.0, rz / torch.where(denom == 0, 1.0, denom))
-            # the state is updated in place, and only on active lanes
-            a = active[:, None]
-            torch.where(a, x + alpha[:, None] * p, x, out=x)
-            r_n = r - alpha[:, None] * kp
-        z_n = prec(r_n)
+            r_p = state.alpha(kp)
+        z = prec(r_p)
         with span("cg.update"):
-            rz_n = _dot(r_n, z_n)
-            dead_n = dead | (active & (bad | ~(rz_n > 0)))
-            beta = torch.where(dead_n, 0.0, rz_n / torch.where(rz == 0, 1.0, rz))
-            torch.where(a, z_n + beta[:, None] * p, p, out=p)
-            torch.where(a, r_n, r, out=r)
-            torch.where(a, z_n, z, out=z)
-            rz = torch.where(active & ~dead_n, rz_n, rz)
-            rr = _dot(r, r)
-            it += active
-            dead = torch.where(active, dead_n, dead)
-    return x * scale[:, None], it, rr * scale * scale
+            state.beta(z)
+        steps += 1
+    count(counter, steps)
+    return x * scale[:, None], it, state.rr * scale * scale
 
 
 def pcg_loop(iters, maxiter=None):

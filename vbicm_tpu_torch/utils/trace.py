@@ -10,7 +10,12 @@ with ``enabled()``; ``utils.timing.profile_trace`` does so for its block.
 
 ``count(name, n)`` adds to a host integer counter; counters are always on,
 never read the device, and are read with ``counters()`` (a snapshot).
-Readers take the difference of two snapshots.
+Readers take the difference of two snapshots. The package's counters:
+``host.sync.datagen_readback`` (``prob/datagen.py``, the chunks' reads),
+``pcg.steps.fused`` and ``pcg.steps.plain`` (``ops/solve.py::pcg``, its loop
+steps through the CG update kernels or the plain version) and
+``cg_update.launches`` (``ops/cg_update_kernel.py``, the kernels' launches:
+two a fused loop step).
 
 ``by_span``, ``span_idle`` and ``span_table`` give a recorded trace's
 kernels and idle gaps to the spans (``tools/profile_scaled_torch.py``).
