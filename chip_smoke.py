@@ -54,7 +54,7 @@ before and read just after:
   through the 3-D trainer's 32x8x8 solver (150 steps, cut from the
   example's 1500);
 - the rest of the trainer (phases 35-40), on Cook's 20x10 at the
-  reference's widths, each phase with the spectral count zeroed before it:
+  reference's widths, each phase with its spectral launches counted:
   the dense Cholesky and inverse solvers against the spectral fh (and
   timed beside it), the full-covariance and flow posteriors (3 + 3 epochs,
   steps/s beside the mean field's), exact resume from the trainer's
@@ -62,7 +62,7 @@ before and read just after:
   1e-12), gradient clipping with resampled base draws, and the dataset's
   .npz round trip;
 - the random-field family (phases 41-47, ``field_path``), each phase with
-  the spectral count zeroed before it and its wall time: the spectral
+  its spectral launches and its wall time: the spectral
   kernel against its plain version at the 3-D field path's coarse size
   (n = 216), the 80x40 field solve of 256 prior fields
   (examples/train_randomfield_torch.py's operator: grid mode, the
@@ -112,6 +112,15 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
+
+
+def launched(name, since=None):
+    """Launches of the kernel ``name`` so far, its ``utils.trace`` counter
+    ``<name>.launches``, less those in the snapshot ``since``."""
+    from vbicm_tpu_torch.utils import trace
+
+    key = f"{name}.launches"
+    return trace.counters().get(key, 0) - (since or {}).get(key, 0)
 
 # (B, n): the 20x10 solve (n = 440), the 160x80 paths' coarse solve (n = 1680
 # free dofs of the 40x20 coarse mesh: B = 256 in the step, 8 in phase 20, 16
@@ -240,9 +249,8 @@ def spectral_times(shape, dtype, dev, card, phase, reps):
     """Phase 7 / 17: the spectral kernel at ``shape`` against its plain
     version and both bounds. Device time (graph_ms) and eager time (time_ms:
     CUDA events around Python calls, host time included where the host is
-    the slower), each timed plain, kernel, kernel, plain; the launch count is
-    restored. Returns {"device": (kernel ms, plain ms), "eager": (...),
-    "bound": ..., "tc": ...}."""
+    the slower), each timed plain, kernel, kernel, plain. Returns {"device":
+    (kernel ms, plain ms), "eager": (...), "bound": ..., "tc": ...}."""
     from vbicm_tpu_torch.ops.spectral_kernel import (
         launch_plan,
         spectral_apply_batched,
@@ -250,7 +258,6 @@ def spectral_times(shape, dtype, dev, card, phase, reps):
     )
 
     V, g, c, b = pencil_problem(*shape, seed=7, dtype=dtype, device=dev)
-    saved = spectral_apply_batched.launches
     out = {}
     for how, timer in (("device", graph_ms),
                        ("eager", lambda f: time_ms(f, warmup=reps // 10, reps=reps))):
@@ -259,7 +266,6 @@ def spectral_times(shape, dtype, dev, card, phase, reps):
             fn = spectral_apply_reference if name.startswith("plain") else spectral_apply_batched
             ms[name] = timer(lambda: fn(V, g, c, b, return_coords=True))
         out[how] = (min(ms["kernel"], ms["kernel2"]), min(ms["plain"], ms["plain2"]), ms)
-    spectral_apply_batched.launches = saved
     out["bound"], out["tc"] = spectral_least_time(*shape, dtype)
     plan = launch_plan(*shape, V.element_size())
     dv, eg = out["device"], out["eager"]
@@ -602,13 +608,13 @@ def main():
 
     # 6. the main path: dataset generation and the two-step trainer
     tcfg = TrainConfig(batch_size=64, num_epoch1=3, num_epoch2=3)
-    spectral_apply_batched.launches = 0
+    before = launched("spectral_apply")
     ds = generate_data_fem(torch.Generator().manual_seed(0), fh32, n_sam=1024, ne_sam=4,
                            device=dev, sig_e=cfg.sig_e, sig_eta=cfg.sig_eta, chunk=4096)
     trainer = TwoStepTrainer(model, cfg, tcfg, factor_dtype=torch.float32, refine_iters=1)
     res = trainer.fit(ds.y_data, ds.e_data, torch.Generator().manual_seed(1))
     torch.cuda.synchronize()
-    launches = spectral_apply_batched.launches
+    launches = launched("spectral_apply") - before
     preds = trainer.predict(res.theta_net, res.z_net, ds.y_data[:8])
     losses = np.concatenate([res.hist_step1, res.hist_step2])
     if not np.all(np.isfinite(losses)):
@@ -846,14 +852,8 @@ def scaled_path(dev, card):
     from vbicm_tpu_torch.model import build_fem_model
     from vbicm_tpu_torch.ops.assembly import element_affine_matvec
     from vbicm_tpu_torch.ops.element import lame_from_Ev
-    from vbicm_tpu_torch.ops.hat_transfer_kernel import hat_transfer
-    from vbicm_tpu_torch.ops.spectral_kernel import spectral_apply_batched
     from vbicm_tpu_torch.ops.stencil import StencilOperator
-    from vbicm_tpu_torch.ops.stencil_kernel import (
-        launch_plan,
-        stencil_affine_matvec,
-        stencil_affine_reference,
-    )
+    from vbicm_tpu_torch.ops.stencil_kernel import launch_plan, stencil_affine_reference
     from vbicm_tpu_torch.prob.datagen import generate_data_fem
     from vbicm_tpu_torch.solver import make_fh_fun, make_solver, make_two_level_solver
     from vbicm_tpu_torch.utils import trace
@@ -862,7 +862,6 @@ def scaled_path(dev, card):
     out = {}
     # 8. stencil kernel against its plain version, ragged sample tiles
     worst = {}
-    saved = stencil_affine_matvec.launches
     for nx, ny in STENCIL_GRIDS:
         op = StencilOperator(build_fem_model(cooks_membrane_mesh(nx, ny), device=dev,
                                              dense=False), nx, ny)
@@ -885,7 +884,6 @@ def scaled_path(dev, card):
                 if dtype == torch.float32 and (nx, B) == STENCIL_MAIN:
                     out["stencil_abs_err"] = float((q - qr).abs().max())
                     stencil_case = (op, c64, u64)
-    stencil_affine_matvec.launches = saved
     print(f"[8 stencil] ok: max rel err vs plain (of max|q|) f32 {worst[torch.float32]:.3e} "
           f"(tol 2e-5), f64 {worst[torch.float64]:.3e} (tol 1e-12), two calls bitwise equal, "
           f"over grids {STENCIL_GRIDS} x B in {STENCIL_BATCHES}", flush=True)
@@ -953,9 +951,6 @@ def scaled_path(dev, card):
     cfg = dataclasses.replace(ProblemConfig(), node_id=model.nnodes, ele_id=(ny // 2) * nx + 12)
     fh = make_fh_fun(model, cfg, solve_free=solvers["f64"])
     tcfg = TrainConfig(batch_size=64, num_epoch1=2, num_epoch2=2)
-    spectral_apply_batched.launches = 0
-    stencil_affine_matvec.launches = 0
-    hat_transfer.launches = 0
     before = trace.counters()
     ds = generate_data_fem(torch.Generator().manual_seed(0), fh, n_sam=256, ne_sam=4, device=dev,
                            sig_e=cfg.sig_e, sig_eta=cfg.sig_eta, chunk=2048)
@@ -963,9 +958,9 @@ def scaled_path(dev, card):
     res = trainer.fit(ds.y_data, ds.e_data, torch.Generator().manual_seed(1))
     torch.cuda.synchronize()
     after = trace.counters()
-    out["spectral_launches"] = spectral_apply_batched.launches
-    out["stencil_launches"] = stencil_affine_matvec.launches
-    out["transfer_launches"] = hat_transfer.launches
+    out["spectral_launches"] = launched("spectral_apply", before)
+    out["stencil_launches"] = launched("stencil_affine", before)
+    out["transfer_launches"] = launched("hat_transfer", before)
     cg = {k: after.get(k, 0) - before.get(k, 0)
           for k in ("cg_update.launches", "pcg.steps.fused", "pcg.steps.plain")}
     out["cg_update_launches"] = cg["cg_update.launches"]
@@ -995,7 +990,6 @@ def scaled_path(dev, card):
           f"epoch 2): {steps / sum(res.epoch_times_step1[1:]):.3f} on {card}", flush=True)
     op, c64, u64 = stencil_case
     out["stencil_ms"] = {}
-    saved = stencil_affine_matvec.launches
     for dtype in (torch.float32, torch.float64):
         u, c = u64.to(dtype), c64.to(dtype)
         t = kernel_times(lambda: op.affine(c, u),
@@ -1014,7 +1008,6 @@ def scaled_path(dev, card):
               f"{t['ms_eager']:.4f} ms; bound {t['bound_ms']:.4f} ms ({t['bound_by']}), "
               f"{100 * t['share_of_bound']:.1f} % of it; cuSPARSE yardstick (eager) "
               f"{t['library_ms']:.4f} ms (rel err {lib_err:.1e}), on {card}", flush=True)
-    stencil_affine_matvec.launches = saved
     thetas = torch.randn((256, 2), generator=torch.Generator().manual_seed(5),
                          dtype=torch.float64).to(dev)
     for residual in ("f64", "split_f32"):
@@ -1036,21 +1029,16 @@ def element_path(dev, card):
     from vbicm_tpu_torch.config import ProblemConfig, SectionCard
     from vbicm_tpu_torch.model import build_fem_model
     from vbicm_tpu_torch.ops.assembly import element_affine_matvec
-    from vbicm_tpu_torch.ops.element_kernel import (
-        ElementOperator,
-        element_affine_matvec_kernel,
-        launch_plan,
-    )
-    from vbicm_tpu_torch.ops.spectral_kernel import spectral_apply_batched
+    from vbicm_tpu_torch.ops.element_kernel import ElementOperator, launch_plan
     from vbicm_tpu_torch.rom import build_reduced_basis, make_fh_fun_rom
     from vbicm_tpu_torch.solver import make_fh_fun, make_solver, make_two_level_solver
+    from vbicm_tpu_torch.utils import trace
 
     out = {}
     f32, f64 = torch.float32, torch.float64
     # 18. the element kernel against its plain version, ragged sample runs,
     #     two launches bitwise equal
     worst = {}
-    saved = element_affine_matvec_kernel.launches
     for name, make, is3d, tables in ELEMENT_MESHES:
         m = build_fem_model(make(meshes), SectionCard(stype=4) if is3d else SectionCard(),
                             device=dev, dense=False)
@@ -1134,7 +1122,6 @@ def element_path(dev, card):
           f"{t['plan']}: device kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms; eager "
           f"kernel {t['ms_eager']:.4f} ms; bound {t['bound_ms']:.4f} ms, "
           f"{100 * t['share_of_bound']:.1f} % of it; on {card}", flush=True)
-    element_affine_matvec_kernel.launches = saved
 
     # 19. Jacobi-PCG (make_solver on matrix-free models) against the dense
     #     spectral solve of the same mesh
@@ -1250,13 +1237,12 @@ def element_path(dev, card):
     rom_errs = (rel_err(y, y_gold), rel_err(h, h_gold))
     if not max(rom_errs) < 1e-5:
         fail(f"ROM fh vs JAX golden: rel err (y, h) {rom_errs} >= 1e-5")
-    spectral_apply_batched.launches = 0
-    element_affine_matvec_kernel.launches = 0
+    before = trace.counters()
     summary = example.train_and_check(rom_model, rom_cfg, rb, nx, ny, n_data=256, epochs1=2,
                                       epochs2=2, seed=0, device=dev, verbose=False)
     torch.cuda.synchronize()
-    out["element_launches"] = element_affine_matvec_kernel.launches
-    out["spectral_launches"] = spectral_apply_batched.launches
+    out["element_launches"] = launched("element_affine", before)
+    out["spectral_launches"] = launched("spectral_apply", before)
     losses = np.concatenate([summary["hist_step1"], summary["hist_step2"]])
     if not np.all(np.isfinite(losses)):
         fail(f"ROM trainer: non-finite losses: step1 {summary['hist_step1']}, step2 "
@@ -1279,13 +1265,12 @@ def element_path(dev, card):
     # 23. times (records, not a claim), each beside the card's name and limit
     th = torch.randn((256, 2), generator=torch.Generator().manual_seed(5),
                      dtype=torch.float64).to(dev)
-    saved = (element_affine_matvec_kernel.launches, spectral_apply_batched.launches)
-    # the element path's own run: one batch, counts zeroed just before
-    element_affine_matvec_kernel.launches = 0
+    # the element path's own run: one batch
+    before = launched("element_affine")
     with torch.no_grad():
         paths[False]["fh"](th)
     torch.cuda.synchronize()
-    out["element_fh_launches"] = element_affine_matvec_kernel.launches
+    out["element_fh_launches"] = launched("element_affine") - before
     if out["element_fh_launches"] <= 0:
         fail("the element-path fh batch never launched the element kernel")
     print(f"[23 launches] element-path two-level fh (160x80, B=256), one batch: element kernel "
@@ -1303,7 +1288,6 @@ def element_path(dev, card):
     dt = wall_s(lambda: fh_rom(th), 100, warmup=5)
     print(f"[23 times] ROM fh (160x80, r={rb.r}, B=256): {256 / dt:.0f} solves/s "
           f"({dt * 1e3:.3f} ms a batch), on {card}", flush=True)
-    element_affine_matvec_kernel.launches, spectral_apply_batched.launches = saved
     return out
 
 
@@ -1320,7 +1304,7 @@ def study_path(dev, card):
         fma_probe_flops,
     )
     from vbicm_tpu_torch.ops.stencil import StencilOperator, build_stencil_tables
-    from vbicm_tpu_torch.ops.stencil_kernel import stencil_affine_matvec, stencil_affine_reference
+    from vbicm_tpu_torch.ops.stencil_kernel import stencil_affine_reference
     from vbicm_tpu_torch.ops.stencil_mxu import (
         KDIM,
         MODES,
@@ -1332,13 +1316,13 @@ def study_path(dev, card):
         stencil_affine_matvec_mxu,
         stencil_affine_mxu_reference,
     )
+    from vbicm_tpu_torch.utils import trace
 
     out = {}
     f32, f64 = torch.float32, torch.float64
     # 24. a forced rows_per_block against the plain version (REL_TOL) and
     #     bitwise against the launch plan's rows, on the same inputs
-    saved = (stencil_affine_matvec.launches, stencil_affine_matvec.rows_launches)
-    stencil_affine_matvec.rows_launches = 0
+    before = launched("stencil_affine_rows")
     ops, tables, worst = {}, {}, {}
     for nx, ny in STENCIL_GRIDS:
         model = build_fem_model(cooks_membrane_mesh(nx, ny), device=dev, dense=False)
@@ -1368,7 +1352,7 @@ def study_path(dev, card):
                         out["rows_abs_err"] = float((qr - qp).abs().max())
             if (nx, B) == STENCIL_MAIN:
                 main_case = (c64, u64)
-    rows_checked = stencil_affine_matvec.rows_launches
+    rows_checked = launched("stencil_affine_rows") - before
     if rows_checked <= 0:
         fail("phase 24 launched the rows-per-block kernel no time")
     print(f"[24 rows-per-block] ok: max rel err vs plain f32 {worst[f32]:.3e} (tol 2e-5), f64 "
@@ -1392,11 +1376,10 @@ def study_path(dev, card):
               f"3 {times[3]:.4f} ms, 8 {times[8]:.4f} ms, 1 {times[1]:.4f} ms, the plan's "
               f"{times[None]:.4f} ms, plain {p_ms:.4f} ms; bound {out['stencil_bound'][0]:.4f} "
               f"ms ({out['stencil_bound'][1]}, f32), on {card}", flush=True)
-    stencil_affine_matvec.launches, stencil_affine_matvec.rows_launches = saved
 
     # 25. the banded tensor-core kernel against its plain version and the
     #     float64 stencil, both modes, two calls bitwise equal
-    saved = stencil_affine_matvec_mxu.launches
+    before = launched("stencil_mxu")
     worst = {}
     for (nx, ny), W in tables.items():
         NY, NX = ny + 1, nx + 1
@@ -1428,7 +1411,7 @@ def study_path(dev, card):
         if (nx, ny) == (STENCIL_MAIN[0], STENCIL_MAIN[0] // 2):
             main_tables = m_all
         del m_all
-    if stencil_affine_matvec_mxu.launches - saved <= 0:
+    if launched("stencil_mxu") - before <= 0:
         fail("phase 25 launched the banded kernel no time")
     print(f"[25 banded] ok: rel err (of max|q|) vs plain / vs f64 stencil: f32 (3xTF32) "
           f"{worst['f32'][0]:.3e} / {worst['f32'][1]:.3e}, bf16x3 {worst['bf16x3'][0]:.3e} / "
@@ -1465,12 +1448,11 @@ def study_path(dev, card):
               f"it; densified bound {dense[0]:.4f} ms ({dense[1]}: {tbytes / 1e6:.1f} MB of "
               f"tables, {dense_flops / 1e9:.2f} GFLOP), on {card}", flush=True)
     del main_tables
-    stencil_affine_matvec_mxu.launches = saved
 
     # 26. the FMA-ceiling probe against its plain version, inputs in
     #     (-0.9, 0.9) so that the chain stays bounded; the kernel contracts
     #     each step to one FMA, the plain version rounds twice
-    saved = fma_peak_probe.launches
+    before = launched("fma_probe")
     worst = {}
     for B, NY, XLP in PROBE_SHAPES:
         g = torch.Generator().manual_seed(B + NY)
@@ -1490,7 +1472,7 @@ def study_path(dev, card):
                     out["probe_abs_err"] = float((o - r).abs().max())
             if (B, NY, XLP) == PROBE_MAIN:
                 probe_case = (a64, b64)
-    if fma_peak_probe.launches - saved <= 0:
+    if launched("fma_probe") - before <= 0:
         fail("phase 26 launched the probe no time")
     print(f"[26 probe] ok: max rel err vs plain (of max|out|) f32 {worst[f32]:.3e} (tol 2e-5), "
           f"f64 {worst[f64]:.3e} (tol 1e-12) over (B, NY, XLP) in {PROBE_SHAPES} x nfma in "
@@ -1511,16 +1493,11 @@ def study_path(dev, card):
                   f"({flops / k_ms / 1e9:.2f} TFLOP/s), plain "
                   f"{'not timed' if p_ms is None else f'{p_ms:.4f} ms'}; bound {bound[0]:.4f} ms "
                   f"({bound[1]}), on {card}", flush=True)
-    fma_peak_probe.launches = saved
 
     # 27. the main path: examples/stencil_kernel_study_torch.py at 160x80,
     #     B = 256, into a temporary results directory
     example = load_example("stencil_kernel_study_torch")
-    counters = (stencil_affine_matvec, "launches"), (stencil_affine_matvec, "rows_launches"), \
-        (stencil_affine_matvec_mxu, "launches"), (fma_peak_probe, "launches")
-    saved = [getattr(f, k) for f, k in counters]
-    for f, k in counters:
-        setattr(f, k, 0)
+    before = trace.counters()
     with tempfile.TemporaryDirectory() as tmp:
         summary = example.main(["--device", "cuda", "--results", tmp, "--reps", "20"])
         torch.cuda.synchronize()
@@ -1528,9 +1505,8 @@ def study_path(dev, card):
             if json.load(fh)["verdict"] != json.loads(json.dumps(summary["verdict"])):
                 fail("the study's summary.json does not hold its verdict")
     (out["onerow_launches"], out["rows_launches"], out["mxu_launches"],
-     out["probe_launches"]) = (getattr(f, k) for f, k in counters)
-    for (f, k), v in zip(counters, saved):
-        setattr(f, k, v)
+     out["probe_launches"]) = (launched(k, before) for k in (
+         "stencil_affine", "stencil_affine_rows", "stencil_mxu", "fma_probe"))
     if min(out["rows_launches"], out["mxu_launches"], out["probe_launches"]) <= 0:
         fail(f"the study launched rows-per-block {out['rows_launches']}, banded "
              f"{out['mxu_launches']}, probe {out['probe_launches']} times; all must be > 0")
@@ -1565,15 +1541,11 @@ def box3d_path(dev, card):
     from vbicm_tpu_torch.model import build_fem_model
     from vbicm_tpu_torch.ops.assembly import element_affine_matvec
     from vbicm_tpu_torch.ops.element import lame_from_Ev
-    from vbicm_tpu_torch.ops.spectral_kernel import spectral_apply_batched
     from vbicm_tpu_torch.ops.stencil3d import StencilOperator3d
-    from vbicm_tpu_torch.ops.stencil3d_kernel import (
-        launch_plan_3d,
-        stencil3d_affine_matvec,
-        stencil3d_affine_reference,
-    )
+    from vbicm_tpu_torch.ops.stencil3d_kernel import launch_plan_3d, stencil3d_affine_reference
     from vbicm_tpu_torch.prob.datagen import generate_data_fem
     from vbicm_tpu_torch.solver import make_fh_fun, make_solver, make_two_level_solver_box3d
+    from vbicm_tpu_torch.utils import trace
     from vbicm_tpu_torch.vi.train import TwoStepTrainer
 
     sec = SectionCard(stype=4)
@@ -1581,7 +1553,6 @@ def box3d_path(dev, card):
 
     # 13. the 3-D stencil kernel against its plain version, ragged tiles
     worst, ops, cases, models = {}, {}, {}, {}
-    saved = stencil3d_affine_matvec.launches
     for cells in BOX_GRIDS:
         models[cells] = m = build_fem_model(beam_hex8_mesh(*cells), sec, device=dev, dense=False)
         ops[cells] = op = StencilOperator3d(m, *cells)
@@ -1606,7 +1577,6 @@ def box3d_path(dev, card):
             if B == 256:
                 cases[cells] = (c64, u64)
         del W
-    stencil3d_affine_matvec.launches = saved
     print(f"[13 stencil3d] ok: max rel err vs plain (of max|q|) f32 {worst[torch.float32]:.3e} "
           f"(tol 2e-5), f64 {worst[torch.float64]:.3e} (tol 1e-12), two calls bitwise equal, "
           f"over grids {BOX_GRIDS} x B in {STENCIL_BATCHES}", flush=True)
@@ -1698,16 +1668,15 @@ def box3d_path(dev, card):
     cfg, fh = fhs["train", 1]["cfg"], fhs["train", 1]["fh"]
     tcfg = TrainConfig(batch_size=64, num_epoch1=2, num_epoch2=2, lr_decay_mode="fixed",
                        pairing="per_sample")
-    spectral_apply_batched.launches = 0
-    stencil3d_affine_matvec.launches = 0
+    before = trace.counters()
     ds = generate_data_fem(torch.Generator().manual_seed(0), fh, n_sam=256, ne_sam=4, device=dev,
                            d_y=3, sig_e=cfg.sig_e, sig_eta=cfg.sig_eta, chunk=512)
     trainer = TwoStepTrainer(None, cfg, tcfg, fh_batch=fh, device=dev,
                              y_norm=(ds.y_mean, ds.y_std), bridge_chunk=512)
     res = trainer.fit(ds.y_data, ds.e_data, torch.Generator().manual_seed(1))
     torch.cuda.synchronize()
-    out["spectral_launches"] = spectral_apply_batched.launches
-    out["stencil3d_launches"] = stencil3d_affine_matvec.launches
+    out["spectral_launches"] = launched("spectral_apply", before)
+    out["stencil3d_launches"] = launched("stencil3d_affine", before)
     out["trained"] = (cfg, fh, trainer, res, ds)  # for the refinement of eval_path
     preds = trainer.predict(res.theta_net, res.z_net, ds.y_data[:8])
     losses = np.concatenate([res.hist_step1, res.hist_step2])
@@ -1728,7 +1697,6 @@ def box3d_path(dev, card):
     print(f"[17 times] 3-D step-1 train steps/s (32x8x8, B=64x4, f32 CG + 1 f64 refinement, "
           f"epoch 2): {steps / sum(res.epoch_times_step1[1:]):.3f} on {card}", flush=True)
     out["stencil3d_ms"] = {}
-    saved = stencil3d_affine_matvec.launches
     for cells in ((32, 8, 8), (64, 16, 16)):
         op = ops[cells]
         c64, u64 = cases[cells]
@@ -1755,7 +1723,6 @@ def box3d_path(dev, card):
                   f"({t['bound_by']}), {100 * t['share_of_bound']:.1f} % of it; cuSPARSE "
                   f"yardstick (eager) {t['library_ms']:.4f} ms (rel err {lib_err:.1e}), on "
                   f"{card}", flush=True)
-    stencil3d_affine_matvec.launches = saved
     out["spectral_ms"] = {dtype: spectral_times(BOX_COARSE_SHAPE, dtype, dev, card, 17, 100)
                           for dtype in (torch.float32, torch.float64)}
     refine = 2
@@ -1801,9 +1768,9 @@ def eval_path(dev, card, box):
     from vbicm_tpu_torch.mesh import cooks_membrane_mesh
     from vbicm_tpu_torch.model import build_fem_model
     from vbicm_tpu_torch.ops.spectral_kernel import spectral_apply_batched
-    from vbicm_tpu_torch.ops.stencil3d_kernel import stencil3d_affine_matvec
     from vbicm_tpu_torch.prob.datagen import generate_data_fem
     from vbicm_tpu_torch.solver import make_fh_fun
+    from vbicm_tpu_torch.utils import trace
     from vbicm_tpu_torch.vi.refine import refine_posterior
     from vbicm_tpu_torch.vi.train import TwoStepTrainer
 
@@ -1813,15 +1780,16 @@ def eval_path(dev, card, box):
     from vbicm_tpu_torch.ops.stencil3d import StencilOperator3d
     from vbicm_tpu_torch.ops.stencil3d_kernel import stencil3d_affine_reference
 
+    mark = {}  # the counters at the phase's start
+
     def phase_start():
         torch.cuda.synchronize()
-        spectral_apply_batched.launches = 0
-        stencil3d_affine_matvec.launches = 0
+        mark.update(trace.counters())
         return time.perf_counter()
 
     def phase_end(t0):
         torch.cuda.synchronize()
-        return time.perf_counter() - t0, spectral_apply_batched.launches
+        return time.perf_counter() - t0, launched("spectral_apply", mark)
 
     cfg = ProblemConfig()
     model = build_fem_model(cooks_membrane_mesh(20, 10), device=dev, dtype=torch.float64)
@@ -1831,9 +1799,8 @@ def eval_path(dev, card, box):
     out = {"eval_20x10": 0}
 
     # 28. the kernels at the evaluation path's shapes against their plain
-    #     versions, two calls bitwise equal (launch counts restored), and
-    #     timed where the path spends its launches
-    saved = spectral_apply_batched.launches, stencil3d_affine_matvec.launches
+    #     versions, two calls bitwise equal, and timed where the path spends
+    #     its launches
     checks = [(shape, torch.float64, REL_TOL[torch.float64]) for shape in EVAL_SHAPES]
     checks += [(REFINE_COARSE_SHAPE, dt, REL_TOL[dt]) for dt in (torch.float32, torch.float64)]
     worst = 0.0
@@ -1863,7 +1830,6 @@ def eval_path(dev, card, box):
     out["stencil3d_ms"] = kernel_times(lambda: op3.affine(c, u),
                                        lambda: stencil3d_affine_reference(W, c, u),
                                        stencil_least_time(op3.planes[torch.float32], c, u))
-    spectral_apply_batched.launches, stencil3d_affine_matvec.launches = saved
     t3 = out["stencil3d_ms"]
     print(f"[28 kernels] ok: spectral kernel vs plain at {EVAL_SHAPES} f64 and "
           f"{REFINE_COARSE_SHAPE} f32, f64 (worst {worst:.3f} of its tolerance), 3-D stencil at "
@@ -2047,7 +2013,7 @@ def eval_path(dev, card, box):
                                      generator=torch.Generator().manual_seed(200), steps=steps,
                                      ne=16, lr=1e-2, chunk_steps=50)
     dt, n1 = phase_end(t0)
-    n4 = stencil3d_affine_matvec.launches
+    n4 = launched("stencil3d_affine", mark)
     out["refine_32x8x8"] = (n1, n4)
     losses = losses.cpu().numpy()
     first, last = losses[:20].mean(), losses[-20:].mean()
@@ -2065,8 +2031,8 @@ def eval_path(dev, card, box):
 
 def trainer_path(dev, card, model, ds, thetas, fh64, mf_steps_per_s):
     """Phases 35-40: the rest of the two-step trainer on Cook's 20x10 at the
-    reference's widths, each phase with the spectral launch count zeroed
-    before it and its wall time: the dense Cholesky and inverse solvers
+    reference's widths, each phase with its spectral launches and its wall
+    time: the dense Cholesky and inverse solvers
     against the spectral solve (phase 5's 256 thetas), the full-covariance
     and flow posteriors (phase 6's dataset, 3 + 3 epochs), exact resume from
     the trainer's checkpoints, gradient clipping with resampled base draws,
@@ -2079,19 +2045,21 @@ def trainer_path(dev, card, model, ds, thetas, fh64, mf_steps_per_s):
     from vbicm_tpu_torch.models.flow import flow_moments
     from vbicm_tpu_torch.ops.element import material_coeffs
     from vbicm_tpu_torch.ops.solve import make_dense_affine_solver, make_spectral_affine_solver
-    from vbicm_tpu_torch.ops.spectral_kernel import spectral_apply_batched
     from vbicm_tpu_torch.prob.datagen import load_dataset, save_dataset
     from vbicm_tpu_torch.solver import make_fh_fun
+    from vbicm_tpu_torch.utils import trace
     from vbicm_tpu_torch.vi.train import TwoStepTrainer
+
+    mark = {}  # the counters at the phase's start
 
     def phase_start():
         torch.cuda.synchronize()
-        spectral_apply_batched.launches = 0
+        mark.update(trace.counters())
         return time.perf_counter()
 
     def phase_end(t0):
         torch.cuda.synchronize()
-        return time.perf_counter() - t0, spectral_apply_batched.launches
+        return time.perf_counter() - t0, launched("spectral_apply", mark)
 
     cfg = ProblemConfig()
     out = {}
@@ -2357,8 +2325,8 @@ def cg_iters(solver):
 
 
 def field_path(dev, card):
-    """Phases 41-47: the random-field family, each phase with the spectral
-    launch count zeroed before it and its wall time: the spectral kernel at
+    """Phases 41-47: the random-field family, each phase with its spectral
+    launches and its wall time: the spectral kernel at
     the 3-D field path's coarse size (n = 216) against its plain version;
     the 80x40 field solve (examples/train_randomfield_torch.py's operator:
     grid mode, the mean-field two-level cycle, float32 CG at tol 3e-3 plus
@@ -2382,17 +2350,20 @@ def field_path(dev, card):
     )
     from vbicm_tpu_torch.prob import randomfield as rf
     from vbicm_tpu_torch.rom.field import build_reduced_basis_field, make_fh_fun_field_rom
+    from vbicm_tpu_torch.utils import trace
     from vbicm_tpu_torch.utils.timing import Timer
     from vbicm_tpu_torch.vi.refine import refine_posterior
 
+    mark = {}  # the counters at the phase's start
+
     def phase_start():
         torch.cuda.synchronize()
-        spectral_apply_batched.launches = 0
+        mark.update(trace.counters())
         return time.perf_counter()
 
     def phase_end(t0):
         torch.cuda.synchronize()
-        return time.perf_counter() - t0, spectral_apply_batched.launches
+        return time.perf_counter() - t0, launched("spectral_apply", mark)
 
     def solves_per_s(fh, thetas, grad, reps=3):
         """Field solves a second of ``fh`` on ``thetas`` (host clock, the card
@@ -2493,9 +2464,9 @@ def field_path(dev, card):
     x32 = torch.randn((256, model.ndof), generator=torch.Generator().manual_seed(43)).to(dev)
     mv = {}
     for mode, f in (("grid", fh), ("lm", fh_lm)):
-        s = f.solver
         with torch.no_grad():
-            mv[mode] = time_ms(lambda: s.matvec(s.ke_cg, s.mask_cg, E32, x32), warmup=5, reps=50)
+            op, _ = f.solver.cg_operator(E32)
+            mv[mode] = time_ms(lambda: op(x32), warmup=5, reps=50)
     with torch.no_grad():
         solve_ms = time_ms(lambda: fh(thetas), warmup=2, reps=10)
     loops = sum(-(-m // 8) * 8 for _, m in iters["trainer"])  # pcg checks every 8 iterations
@@ -2583,7 +2554,9 @@ def field_path(dev, card):
                            step1_steady=s2.get("step1_steps_per_sec_steady"),
                            solves_per_s=fwd, grad_solves_per_s=grad)
     print(f"[44 field trainer 2-D] ok: step1 losses {res2.hist_step1.tolist()}, step2 "
-          f"{res2.hist_step2.tolist()}; spectral launches {n1}; train steps/s (2 + 2 epochs, "
+          f"{res2.hist_step2.tolist()}; spectral launches {n1} (the phase: the example's "
+          f"datagen and training), {s2['training_launches']['spectral_apply']} in training; "
+          f"train steps/s (2 + 2 epochs, "
           f"first epochs included) {s2['train_steps_per_sec']:.3f}, step-1 steps/s (epoch 2) "
           f"{s2.get('step1_steps_per_sec_steady', float('nan')):.3f}; field solves/s at B 256 "
           f"forward {fwd:.1f}, with the theta-gradient {grad:.1f}; {dt_s:.2f} s on {card}",
@@ -2619,7 +2592,7 @@ def field_path(dev, card):
         fail(f"3-D field solve vs f64 Jacobi: two-level f64 {e_p} (tol 1e-6), trainer {e_t} "
              "(tol 1e-3)")
     _, n_solve = phase_end(t0)
-    spectral_apply_batched.launches = 0
+    mark.update(trace.counters())
     trainer3, res3, _, s3 = ex3.field_example.train(fh3, cfg3, n_data=256, epochs1=2,
                                                     epochs2=2, posterior="fullcov", seed=0,
                                                     device=dev, verbose=False, chunk=256)
@@ -2637,7 +2610,8 @@ def field_path(dev, card):
           f"{e_t:.2e} (tol 1e-3); CG iterations (mean, max) "
           f"{'; '.join(f'{k} {v[1]}' for k, v in r3.items())}; trainer 2 + 2 epochs at n_data "
           f"256: step1 losses {res3.hist_step1.tolist()}, step2 {res3.hist_step2.tolist()}; "
-          f"spectral launches solve {n_solve}, trainer {n1}; train steps/s "
+          f"spectral launches solve {n_solve}, trainer {n1} (datagen and training), "
+          f"{s3['training_launches']['spectral_apply']} in training; train steps/s "
           f"{s3['train_steps_per_sec']:.3f}, step-1 steps/s (epoch 2) "
           f"{s3.get('step1_steps_per_sec_steady', float('nan')):.3f}; field solves/s at B 64 "
           f"{fwd3:.1f}; {dt_s:.2f} s on {card}", flush=True)
@@ -2774,8 +2748,8 @@ def transfer_path(dev, card):
         launch_plan,
     )
     from vbicm_tpu_torch.ops.multigrid import hat_matrix
-    from vbicm_tpu_torch.ops.spectral_kernel import spectral_apply_batched
     from vbicm_tpu_torch.solver import make_fh_fun, make_two_level_solver
+    from vbicm_tpu_torch.utils import trace
 
     t0 = time.perf_counter()
     out = {"err": {}, "bitwise": {}, "ms": {}}
@@ -2793,7 +2767,7 @@ def transfer_path(dev, card):
                             device=dev)
         return ps, pts, u, r
 
-    hat_transfer.launches = 0
+    before = launched("hat_transfer")
     calls = 0
     for B, cells, ratio, ndof in TRANSFER_SHAPES:
         for dtype in (torch.float32, torch.float64):
@@ -2823,8 +2797,8 @@ def transfer_path(dev, card):
                     fail(f"hat {B}x{cells} r{ratio}: <P u, r> - <u, R r> {adj} > 1e-12")
                 out.setdefault("adjoint", 0.0)
                 out["adjoint"] = max(out["adjoint"], adj)
-    if hat_transfer.launches != calls:
-        fail(f"hat transfers launched {hat_transfer.launches} times in {calls} calls")
+    if launched("hat_transfer") - before != calls:
+        fail(f"hat transfers launched {launched('hat_transfer') - before} times in {calls} calls")
     worst = {dt: max(v for k, v in out["err"].items() if k.endswith(str(dt)))
              for dt in (torch.float32, torch.float64)}
     at_cells = {k: v for k, v in out["bitwise"].items() if k.split(" ")[1] == "256x20x40"}
@@ -2844,12 +2818,12 @@ def transfer_path(dev, card):
     fh = make_fh_fun(model, cfg, solve_free=solve)
     thetas = torch.randn((256, 2), generator=torch.Generator().manual_seed(48),
                          dtype=torch.float64).to(dev)
-    hat_transfer.launches = spectral_apply_batched.launches = 0
+    before = trace.counters()
     with torch.no_grad():
         fh(thetas)
     torch.cuda.synchronize()
-    out["launches_fh"] = hat_transfer.launches
-    prec_calls = spectral_apply_batched.launches  # one coarse apply a preconditioner call
+    out["launches_fh"] = launched("hat_transfer", before)
+    prec_calls = launched("spectral_apply", before)  # one coarse apply a preconditioner call
     if not (prec_calls > 0 and out["launches_fh"] == 2 * prec_calls):
         fail(f"one 160x80 fh batch: {out['launches_fh']} transfer launches for {prec_calls} "
              "preconditioner calls (want two each)")
@@ -2857,7 +2831,6 @@ def transfer_path(dev, card):
           f"launches, 2 x {prec_calls} preconditioner calls", flush=True)
 
     # device time beside the bound and the plain version's
-    saved = hat_transfer.launches
     for B, cells, ratio, ndof in TRANSFER_TIMED:
         for dtype in (torch.float32, torch.float64):
             ps, pts, u, r = case(B, cells, ratio, ndof, dtype, seed=1)
@@ -2874,7 +2847,6 @@ def transfer_path(dev, card):
                       f"{t['plain_ms']:.4f} ms; eager kernel {t['ms_eager']:.4f} ms; bound "
                       f"{t['bound_ms']:.4f} ms ({t['bound_by']}), {100 * t['share_of_bound']:.1f} "
                       f"% of it, on {card}", flush=True)
-    hat_transfer.launches = saved
     print(f"[48 hat transfer] {time.perf_counter() - t0:.2f} s", flush=True)
     return out
 
@@ -3037,7 +3009,7 @@ def cg_update_path(dev, card):
                                   f"{v[1]} regs" for (dt, b), v in fits.items()), flush=True)
 
     # the kernel pair against the plain version, lanes in every state
-    before = trace.counters().get("cg_update.launches", 0)
+    before = launched("cg_update")
     calls = 0
     for B, n in CG_SHAPES:
         for dtype in (f32, f64):
@@ -3055,9 +3027,9 @@ def cg_update_path(dev, card):
             if not all(torch.equal(cg_bits(got[k]), cg_bits(again[k])) for k in got):
                 fail(f"cg update {key}: two launches are not bitwise equal")
             out["err"][key] = err
-    launched = trace.counters().get("cg_update.launches", 0) - before
-    if launched != calls:
-        fail(f"cg update: {launched} launches counted for {calls}")
+    counted = launched("cg_update") - before
+    if counted != calls:
+        fail(f"cg update: {counted} launches counted for {calls}")
     worst = {dt: max(v for k, v in out["err"].items() if k.endswith(str(dt))) for dt in (f32, f64)}
     print(f"[49 cg update] ok: kernel pair vs plain, lanes {CG_LANE_STATES} by index mod 6, max "
           f"rel err (of the state and of the updates to x, r, p, each of its own max) f32 "

@@ -118,8 +118,8 @@ def train(fh, cfg, *, n_data, epochs1, epochs2, posterior, seed, device, results
     import torch
 
     from vbicm_tpu_torch.config import TrainConfig
-    from vbicm_tpu_torch.ops.spectral_kernel import spectral_apply_batched
     from vbicm_tpu_torch.prob.datagen import generate_data_fem
+    from vbicm_tpu_torch.utils import trace
     from vbicm_tpu_torch.vi.train import TwoStepTrainer
 
     summary = {}
@@ -138,15 +138,16 @@ def train(fh, cfg, *, n_data, epochs1, epochs2, posterior, seed, device, results
                        resample_e=True, clip_grad_norm=1e5, posterior=posterior)
     trainer = TwoStepTrainer(None, cfg, tcfg, fh_batch=fh, device=device, verbose=verbose,
                              results_path=results, y_norm=(ds.y_mean, ds.y_std), bridge_chunk=512)
-    spectral_apply_batched.launches = 0
+    launched = trace.counters().get("spectral_apply.launches", 0)
     t0 = time.time()
     res = trainer.fit(ds.y_data, ds.e_data, torch.Generator().manual_seed(seed + 1))
     train_s = time.time() - t0
+    launched = trace.counters().get("spectral_apply.launches", 0) - launched
     steps_per_epoch = -(-n_data // 64)
     n_steps = steps_per_epoch * (epochs1 + epochs2)
     summary.update(train_s=train_s, train_steps_per_sec=n_steps / train_s,
                    step1_last=float(res.hist_step1[-1]), step2_last=float(res.hist_step2[-1]),
-                   training_launches={"spectral_apply": spectral_apply_batched.launches})
+                   training_launches={"spectral_apply": launched})
     et1 = res.epoch_times_step1
     if len(et1) > 1:
         # epoch 0 carries the kernels' build and the CUDA start-up

@@ -91,10 +91,9 @@ def main():
     from vbicm_tpu_torch.config import ProblemConfig, TrainConfig
     from vbicm_tpu_torch.mesh import cooks_membrane_mesh
     from vbicm_tpu_torch.model import build_fem_model
-    from vbicm_tpu_torch.ops.spectral_kernel import spectral_apply_batched
-    from vbicm_tpu_torch.ops.stencil_kernel import stencil_affine_matvec
     from vbicm_tpu_torch.prob.datagen import cached_dataset, generate_data_fem
     from vbicm_tpu_torch.solver import make_fh_fun, make_two_level_solver
+    from vbicm_tpu_torch.utils import trace
     from vbicm_tpu_torch.vi.train import TwoStepTrainer
 
     device = torch.device(args.device)
@@ -136,15 +135,16 @@ def main():
     tcfg = TrainConfig(batch_size=64, num_epoch1=args.epochs1, num_epoch2=args.epochs2)
     trainer = TwoStepTrainer(None, cfg, tcfg, fh_batch=fh, device=device, verbose=True,
                              results_path=args.results)
-    # the kernels' launches in training (the counts of ops.spectral_kernel
-    # and ops.stencil_kernel, zeroed here)
-    spectral_apply_batched.launches = stencil_affine_matvec.launches = 0
+    # the kernels' launches in training (utils.trace counters)
+    before = trace.counters()
     t0 = time.time()
     res = trainer.fit(ds.y_data, ds.e_data, torch.Generator().manual_seed(args.seed + 1),
                       resume=args.resume)
     train_s = time.time() - t0
-    summary["training_launches"] = {"spectral_apply": spectral_apply_batched.launches,
-                                    "stencil_affine": stencil_affine_matvec.launches}
+    after = trace.counters()
+    summary["training_launches"] = {
+        k: after.get(f"{k}.launches", 0) - before.get(f"{k}.launches", 0)
+        for k in ("spectral_apply", "stencil_affine")}
     # the epochs this run trained (a resumed run skips the banked ones)
     n_epochs = len(res.epoch_times_step1) + len(res.epoch_times_step2)
     n_steps = -(-ds.n_sam // 64) * n_epochs

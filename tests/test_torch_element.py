@@ -32,6 +32,7 @@ from vbicm_tpu_torch.ops.element_kernel import (
     ElementOperator,
     element_affine_matvec_kernel,
 )
+from vbicm_tpu_torch.utils import trace
 
 # (name, port mesh factory, section): quad4 Cook's, the same mesh with its
 # nodes and elements randomly renumbered, and a hex8 box
@@ -279,10 +280,10 @@ def test_wrapper_on_cpu_runs_plain_and_counts_no_launch():
     ke = torch.stack([model.ke_lam, model.ke_mu])
     row_ptr, ent = (torch.as_tensor(t) for t in dof_incidence(model.lm, model.ndof))
     coeffs, u = (torch.as_tensor(a) for a in _inputs(3, model.ndof, seed=9))
-    before = element_affine_matvec_kernel.launches
+    before = trace.counters().get("element_affine.launches", 0)
     q = element_affine_matvec_kernel(ke, model.lm.int(), row_ptr, ent, coeffs, u)
     assert torch.equal(q, element_affine_matvec(ke, model.lm, coeffs, u, model.ndof))
-    assert element_affine_matvec_kernel.launches == before == 0
+    assert trace.counters().get("element_affine.launches", 0) == before
 
 
 def test_wrapper_on_cpu_runs_plain_on_doubled_elements_and_counts_no_launch():
@@ -294,10 +295,11 @@ def test_wrapper_on_cpu_runs_plain_on_doubled_elements_and_counts_no_launch():
     lm2 = model.lm.repeat(2, 1).int()
     row_ptr, ent = (torch.as_tensor(t) for t in dof_incidence(lm2, model.ndof))
     coeffs, u = (torch.as_tensor(a) for a in _inputs(5, model.ndof, seed=12))
+    before = trace.counters().get("element_affine.launches", 0)
     q = element_affine_matvec_kernel(ke2, lm2, row_ptr, ent, coeffs, u)
     once = element_affine_matvec(ke2[:, :model.nele], model.lm, coeffs, u, model.ndof)
     assert float((q - 2 * once).abs().max()) <= 1e-12 * float(once.abs().max())
-    assert element_affine_matvec_kernel.launches == 0
+    assert trace.counters().get("element_affine.launches", 0) == before
 
 
 def _meta_args(nele=6, edof=8, ndof=20, B=3, dtype=torch.float32):
@@ -327,6 +329,7 @@ def _meta_args(nele=6, edof=8, ndof=20, B=3, dtype=torch.float32):
         "three-parts", "noncontiguous", "edof", "misaligned"])
 def test_wrapper_refuses_what_the_kernel_does_not_take(change, error, match):
     args = _meta_args(edof=4) if change == "edof 4" else {**_meta_args(), **change}
+    before = trace.counters().get("element_affine.launches", 0)
     with pytest.raises(error, match=match):
         element_affine_matvec_kernel(**args)
-    assert element_affine_matvec_kernel.launches == 0
+    assert trace.counters().get("element_affine.launches", 0) == before

@@ -21,6 +21,7 @@ from vbicm_tpu_torch.ops.hat_transfer_kernel import (
     smem_bytes,
 )
 from vbicm_tpu_torch.ops.multigrid import hat_matrix, make_grid_transfer_nd
+from vbicm_tpu_torch.utils import trace
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(ROOT, "vbicm_tpu_torch", "csrc", "hat_transfer.cu")
@@ -71,10 +72,10 @@ def test_cpu_transfers_are_the_matmul_form_bitwise(cells, ratio, ndof, dtype):
     r_f = torch.as_tensor(rng.normal(size=(5, n_f)), dtype=dtype)
     prolong, restrict = make_grid_transfer_nd(cells, ratio, ndof)
     want_p, want_r = _matmul_form(cells, ratio)
-    before = hat_transfer.launches
+    before = trace.counters().get("hat_transfer.launches", 0)
     assert torch.equal(prolong(u_c), want_p(u_c))
     assert torch.equal(restrict(r_f), want_r(r_f))
-    assert hat_transfer.launches == before == 0
+    assert trace.counters().get("hat_transfer.launches", 0) == before
 
 
 def _meta(shape, dtype=torch.float32):
@@ -99,10 +100,11 @@ def test_wrapper_refuses_what_the_kernels_do_not_take(x, kw, error, match):
     """A prolongation from the 8x4 grid's coarse grid at ratio 2 ((2, 4)
     cells, 30 coarse values), with one argument changed."""
     args = {"cells_coarse": (2, 4), "ratio": 2, "ndof_node": 2, **kw}
+    before = trace.counters().get("hat_transfer.launches", 0)
     with pytest.raises(error, match=match):
         hat_transfer(x, None, args["cells_coarse"], args["ratio"], args["ndof_node"],
                      adjoint=False)
-    assert hat_transfer.launches == 0
+    assert trace.counters().get("hat_transfer.launches", 0) == before
 
 
 def test_restriction_refuses_a_coarse_vector():

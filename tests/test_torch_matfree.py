@@ -215,7 +215,7 @@ def test_fea_solution_with_solve_free_matches_jax(cooks20):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-8)
 
 
-def test_matrix_free_second_derivative_raises(cooks20):
+def test_matrix_free_second_derivative_matches_dense(cooks20):
     """A backward pass that builds a graph (create_graph=True, as a Hessian
     does) through the matrix-free solve no longer raises: the second
     derivatives of sum(w * u) in (lam, mu) equal the dense spectral solve's

@@ -37,6 +37,7 @@ from vbicm_tpu_torch.ops.stencil_kernel import (
     stencil_affine_matvec,
     stencil_affine_reference,
 )
+from vbicm_tpu_torch.utils import trace
 
 GRIDS = [(8, 4), (32, 16)]
 SMEM_BYTES = 232448  # shared memory one H100 block may use (227 KB)
@@ -152,17 +153,18 @@ def test_wrapper_on_cpu_runs_plain_and_counts_no_launch():
     model = build_fem_model(cooks_membrane_mesh(8, 4), device="cpu")
     W = torch.as_tensor(build_stencil_tables(model, 8, 4))
     coeffs, u = (torch.as_tensor(a) for a in _inputs(3, model.ndof, seed=9))
-    before = stencil_affine_matvec.launches
+    before = trace.counters().get("stencil_affine.launches", 0)
     q = stencil_affine_matvec(W, None, coeffs, u)
     assert torch.equal(q, stencil_affine_reference(W, coeffs, u))
-    assert stencil_affine_matvec.launches == before == 0
+    assert trace.counters().get("stencil_affine.launches", 0) == before
 
 
 def test_wrapper_refuses_tensors_off_cpu_and_cuda():
     w, c, u = (torch.empty(s, device="meta") for s in ((5, 42, 18), (3, 2), (3, 90)))
+    before = trace.counters().get("stencil_affine.launches", 0)
     with pytest.raises(ValueError):
         stencil_affine_matvec(None, w, c, u)
-    assert stencil_affine_matvec.launches == 0
+    assert trace.counters().get("stencil_affine.launches", 0) == before
 
 
 def _h100_fit(NX2, itemsize):
@@ -305,11 +307,14 @@ def test_rows_per_block_on_cpu_matches_pallas_multirow_interpret(rpp):
         interpret=True))
     op = StencilOperator(model, nx, ny, W=W)
     c, ut = torch.as_tensor(coeffs, dtype=torch.float32), torch.as_tensor(u, dtype=torch.float32)
+    before = trace.counters()
     q = op.affine(c, ut, rows_per_block=rpp)
     assert torch.equal(q, op.affine(c, ut))  # the option computes the one-row function
     # 3e-6 x max|q|, as the one-row case above: float32 sums in other orders
     np.testing.assert_allclose(q.numpy(), want, atol=3e-6 * np.abs(want).max())
-    assert stencil_affine_matvec.launches == stencil_affine_matvec.rows_launches == 0
+    after = trace.counters()
+    assert all(after.get(k, 0) == before.get(k, 0)
+               for k in ("stencil_affine.launches", "stencil_affine_rows.launches"))
 
 
 @pytest.mark.parametrize("rows", [0, -1, 2.0])

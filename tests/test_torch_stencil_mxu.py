@@ -42,6 +42,7 @@ from vbicm_tpu_torch.ops.stencil_mxu import (
     stencil_affine_matvec_mxu,
     stencil_affine_mxu_reference,
 )
+from vbicm_tpu_torch.utils import trace
 
 GRIDS = [(12, 6), (64, 4)]
 
@@ -150,18 +151,19 @@ def test_wrapper_on_cpu_runs_plain_and_counts_no_launch():
     nx, ny = 12, 6
     W = jax_build_stencil_tables(jax_build_fem_model(jax_cooks_mesh(nx, ny), dense=False), nx, ny)
     coeffs, u = (torch.as_tensor(a) for a in _inputs(2, 2 * (nx + 1) * (ny + 1), seed=5))
-    before = stencil_affine_matvec_mxu.launches
+    before = trace.counters().get("stencil_mxu.launches", 0)
     for mode in MODES:
         mb = pack_w_bands(W, mode)
         q = stencil_affine_matvec_mxu(mb, coeffs, u, ny + 1, nx + 1, mode)
         assert torch.equal(q, stencil_affine_mxu_reference(mb, coeffs, u, ny + 1, nx + 1, mode))
-    assert stencil_affine_matvec_mxu.launches == before == 0
+    assert trace.counters().get("stencil_mxu.launches", 0) == before
 
 
 def test_wrapper_and_packing_refuse_bad_input():
     rows = 5 * KDIM
     m = torch.empty((rows, 256), device="meta")
     c, u = torch.empty((3, 2), device="meta"), torch.empty((3, 5 * 18), device="meta")
+    before = trace.counters().get("stencil_mxu.launches", 0)
     with pytest.raises(ValueError):
         stencil_affine_matvec_mxu(m, c, u, 5, 9, "f32")
     with pytest.raises(ValueError):
@@ -170,7 +172,7 @@ def test_wrapper_and_packing_refuse_bad_input():
         pack_w_bands(np.zeros((3, 2, 2, 3, 3, 2, 2)), "f32")
     with pytest.raises(ValueError):
         pack_w_bands(np.zeros((2, 2, 2, 3, 3, 2, 2)), "f16")
-    assert stencil_affine_matvec_mxu.launches == 0
+    assert trace.counters().get("stencil_mxu.launches", 0) == before
 
 
 # the band rule's grids: T = 1 with 2NX = 18 and 26 lanes, 2NX = 128 (one full

@@ -21,7 +21,7 @@ from vbicm_tpu_torch.ops.peak_probe import (
     fma_probe_flops,
 )
 from vbicm_tpu_torch.ops.stencil_mxu import band_table_bytes
-from vbicm_tpu_torch.utils import roofline
+from vbicm_tpu_torch.utils import roofline, trace
 from vbicm_tpu_torch.utils.roofline import device_peaks, least_time_s, mfu_fields
 from vbicm_tpu_torch.utils.timing import Timer, benchmark_fn, profile_trace
 
@@ -64,21 +64,23 @@ def test_probe_wrapper_on_cpu_runs_plain_and_counts_no_launch():
     g = torch.Generator().manual_seed(1)
     a = torch.rand((3, 2 * 16), generator=g, dtype=torch.float64) * 1.8 - 0.9
     b = torch.rand((3, 16), generator=g, dtype=torch.float64) * 1.8 - 0.9
+    before = trace.counters().get("fma_probe.launches", 0)
     out = fma_peak_probe(a, b, 7)
     acc = a.reshape(3, 2, 16)
     for _ in range(7):
         acc = acc * b[:, None] + b[:, None]
     assert torch.equal(out, acc.reshape(3, 32))
     assert torch.equal(fma_peak_probe(a, b, 0), a)
-    assert fma_peak_probe.launches == 0
+    assert trace.counters().get("fma_probe.launches", 0) == before
     assert fma_probe_flops(256, 81, 384, 42) == 2 * 42 * 256 * 81 * 384
 
 
 def test_probe_wrapper_refuses_tensors_off_cpu_and_cuda():
     a, b = torch.empty((2, 8), device="meta"), torch.empty((2, 4), device="meta")
+    before = trace.counters().get("fma_probe.launches", 0)
     with pytest.raises(ValueError):
         fma_peak_probe(a, b, 3)
-    assert fma_peak_probe.launches == 0
+    assert trace.counters().get("fma_probe.launches", 0) == before
 
 
 def test_device_peaks(monkeypatch):

@@ -7,6 +7,7 @@ iterations agree with the loop. Then the attribution of kernels to spans
 import collections
 import contextlib
 import dataclasses
+import functools
 import importlib.util
 import math
 import os
@@ -18,7 +19,8 @@ import torch
 from vbicm_tpu_torch.config import ProblemConfig, TrainConfig
 from vbicm_tpu_torch.mesh import cooks_membrane_mesh
 from vbicm_tpu_torch.model import build_fem_model
-from vbicm_tpu_torch.ops.solve import pcg, pcg_lane_use, pcg_loop
+from vbicm_tpu_torch.ops.element import lame_from_Ev
+from vbicm_tpu_torch.ops.solve import make_field_solver, pcg, pcg_lane_use, pcg_loop
 from vbicm_tpu_torch.prob.datagen import generate_data_fem
 from vbicm_tpu_torch.solver import make_fh_fun, make_two_level_solver
 from vbicm_tpu_torch.utils import trace
@@ -86,6 +88,30 @@ def _fh_grad(problem):
     y, h = fh(thetas)
     (y.sum() + h.sum()).backward()
     return [y.detach(), h.detach(), thetas.grad]
+
+
+@functools.lru_cache(maxsize=None)
+def _field_solver():
+    """Cook's 8x4 and its field solver in grid mode: float32 CG and one
+    float64 refinement, the random-field trainer's policy."""
+    model = build_fem_model(cooks_membrane_mesh(8, 4), device="cpu", dense=False)
+    lam1, mu1 = lame_from_Ev(1.0, 0.3)
+    solve = make_field_solver(lam1 * model.ke_lam + mu1 * model.ke_mu, model.lm,
+                              model.free_mask, model.ndof, tol=1e-6, cg_dtype=torch.float32,
+                              refine_iters=1, grid=(8, 4))
+    return model, solve
+
+
+def _field_grad(problem):
+    """A field solve forward and backward on the 8x4 grid at fixed fields:
+    u and d(sum w u)/dE."""
+    model, solve = _field_solver()
+    rng = np.random.default_rng(5)
+    E = torch.as_tensor(np.exp(3.0 + 0.3 * rng.normal(size=(3, model.nele))))
+    E.requires_grad_(True)
+    u = solve(E, model.f_ext.expand(3, -1))
+    (torch.as_tensor(rng.normal(size=tuple(u.shape))) * u).sum().backward()
+    return [u.detach(), E.grad]
 
 
 @pytest.fixture(scope="module")
@@ -162,17 +188,21 @@ def test_spans_are_recorded_and_nest_under_the_profiler(problem):
     assert not wrong, wrong
 
 
-@pytest.mark.parametrize("run", ["train_step", "fh_grad"])
+@pytest.mark.parametrize("run", ["train_step", "fh_grad", "field_grad"])
 def test_results_bitwise_with_spans_on_and_off(problem, run):
-    fn = {"train_step": _train_step, "fh_grad": _fh_grad}[run]
+    """The affine solver (the trainer's and fh's) and the field solver run
+    through one autograd Function: the same bits, and its spans, either way."""
+    fn = {"train_step": _train_step, "fh_grad": _fh_grad, "field_grad": _field_grad}[run]
     off = fn(problem)
     with trace.enabled():
         on = fn(problem)
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]), \
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof, \
             trace.enabled():
         profiled = fn(problem)
     for a, b, c in zip(off, on, profiled, strict=True):
         assert torch.equal(a, b) and torch.equal(a, c)
+    assert {"solve.forward", "solve.adjoint", "solve.cotangent", "cg.run",
+            "refine.residual"} <= {ev.key for ev in prof.key_averages()}
 
 
 def _expected_loop(lane_iters, maxiter, check_every=8):

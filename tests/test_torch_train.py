@@ -18,10 +18,9 @@ import vbicm_tpu_torch
 from vbicm_tpu_torch.config import ProblemConfig, SectionCard, TrainConfig
 from vbicm_tpu_torch.mesh import beam_hex8_mesh, cooks_membrane_mesh
 from vbicm_tpu_torch.model import build_fem_model
-from vbicm_tpu_torch.ops.spectral_kernel import spectral_apply_batched
-from vbicm_tpu_torch.ops.stencil3d_kernel import stencil3d_affine_matvec
 from vbicm_tpu_torch.prob.datagen import generate_data_fem
 from vbicm_tpu_torch.solver import make_fh_fun, make_two_level_solver_box3d
+from vbicm_tpu_torch.utils import trace
 from vbicm_tpu_torch.vi.train import TwoStepTrainer
 
 
@@ -37,6 +36,7 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "vbicm_tpu")
 
 
 def test_fit_cooks_two_step_on_cpu():
+    before = trace.counters().get("spectral_apply.launches", 0)
     model = build_fem_model(cooks_membrane_mesh(20, 10), device="cpu")
     cfg = ProblemConfig()
     fh = make_fh_fun(model, cfg, factor_dtype=torch.float32, refine_iters=1)
@@ -53,13 +53,15 @@ def test_fit_cooks_two_step_on_cpu():
     assert res.logz_mean_post.shape == (64, 2) and np.all(res.logz_sig_post >= 0.0)
     preds = trainer.predict(res.theta_net, res.z_net, ds.y_data)
     assert all(p.shape == (64, 2) and bool(torch.isfinite(p).all()) for p in preds)
-    assert spectral_apply_batched.launches == 0  # CPU tensors take the plain version
+    # CPU tensors take the plain version
+    assert trace.counters().get("spectral_apply.launches", 0) == before
 
 
 def test_fit_box3d_two_step_on_cpu():
     """The 3-D path end to end at 4x2x2 (coarse 2x1x1): dataset generation
     and the trainer through the box two-level observation operator, with
     input standardization and per-sample pairing."""
+    before = trace.counters().get("stencil3d_affine.launches", 0)
     sec = SectionCard(stype=4)
     tip = (0.0, 0.0, -1.0)  # root stresses well above the noise at this coarse grid
     model = build_fem_model(beam_hex8_mesh(4, 2, 2, tip_force=tip), sec, device="cpu",
@@ -83,7 +85,8 @@ def test_fit_box3d_two_step_on_cpu():
     np.testing.assert_allclose(res.theta_net.y_shift.numpy(), ds.y_mean.ravel())
     preds = trainer.predict(res.theta_net, res.z_net, ds.y_data[:8])
     assert all(p.shape == (8, 2) and bool(torch.isfinite(p).all()) for p in preds)
-    assert stencil3d_affine_matvec.launches == 0  # CPU tensors take the plain version
+    # CPU tensors take the plain version
+    assert trace.counters().get("stencil3d_affine.launches", 0) == before
 
 
 @pytest.mark.parametrize("field,value", [("posterior", "fullcov"), ("ckpt_every", 1),

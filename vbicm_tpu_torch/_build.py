@@ -9,6 +9,11 @@ objects are linked into one shared library under ``build/vbicm_tpu_torch/``
 at the root of the checkout, loaded with ``ctypes``. The library's file name carries a hash of the sources, headers
 and flags, so an edited source or header builds anew and a stale library is
 never loaded. Nothing is fetched; a failed build raises.
+
+The kernels' wrappers (``ops/*_kernel.py``, ``ops/stencil_mxu.py``,
+``ops/peak_probe.py``) check their CUDA operands with :func:`check_operands`
+and launch through :func:`launch`, which counts each call in the
+``utils.trace`` counter ``<entry>.launches``.
 """
 from __future__ import annotations
 
@@ -20,6 +25,10 @@ import os
 import shutil
 import subprocess
 import time
+
+import torch
+
+from .utils.trace import count
 
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "vbicm_tpu_torch")
@@ -158,3 +167,59 @@ def kernel_fit(fn, n, *args):
     if err != 0:
         raise RuntimeError(f"{fn.__name__}{args} failed with CUDA error {err}")
     return tuple(out)
+
+
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+_ENTRIES = {}
+
+
+def entry(name: str, kind):
+    """The library's entry point ``vbicm_<name>_<suffix>``, the suffix
+    ``f32`` or ``f64`` for a dtype ``kind``, else ``kind`` itself (a mode);
+    resolved once."""
+    fn = _ENTRIES.get((name, kind))
+    if fn is None:
+        lib, _, _ = load_library()
+        fn = _ENTRIES[name, kind] = getattr(lib, f"vbicm_{name}_{_SUFFIX.get(kind, kind)}")
+    return fn
+
+
+def check_operands(who: str, names, tensors, floats: int = 0, align=()):
+    """Check the operands of the wrapper ``who`` before it launches a kernel.
+    ``names`` and ``tensors`` pair up: the first ``floats`` tensors all
+    float32 or all float64 (else ``TypeError``); every tensor contiguous and
+    the i-th starting on an ``align[i]``-byte boundary (0 or past the end:
+    any); all on one CUDA device (else ``ValueError``). Returns the device."""
+    if floats:
+        dtype = tensors[0].dtype
+        if dtype not in _SUFFIX or any(t.dtype != dtype for t in tensors[1:floats]):
+            raise TypeError(f"{who}: dtypes {[t.dtype for t in tensors[:floats]]}; "
+                            "all must be float32 or all float64")
+    for i, t in enumerate(tensors):
+        if not t.is_contiguous():
+            raise ValueError(f"{who}: {names[i]} must be contiguous")
+        if i < len(align) and align[i] and t.data_ptr() % align[i]:
+            raise ValueError(f"{who}: {names[i]} must be {align[i]}-byte aligned")
+    device = tensors[0].device
+    if device.type != "cuda" or any(t.device != device for t in tensors):
+        raise ValueError(f"{who}: tensors on {[str(t.device) for t in tensors]}; all must be "
+                         "on one CUDA device (or on the CPU)")
+    return device
+
+
+def launch(name: str, kind, device, args, detail, counter=None):
+    """Launch :func:`entry` ``(name, kind)`` with ``args`` and the current
+    stream of the CUDA ``device``, under a device guard only where the device
+    is not the current one; count the call in ``<counter or name>.launches``.
+    A nonzero CUDA error raises ``RuntimeError`` with ``detail()``, the
+    wrapper's account of the launch."""
+    fn = _ENTRIES.get((name, kind)) or entry(name, kind)
+    index = device.index
+    if index == torch._C._cuda_getDevice():
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed with CUDA error {err} {detail()}")
+    count(f"{counter or name}.launches")

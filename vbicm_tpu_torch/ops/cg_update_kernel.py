@@ -164,22 +164,15 @@ class CgUpdateKernel:
             if tuple(t.shape) != shape or t.dtype != dt:
                 raise ValueError(f"cg_update: {name} {tuple(t.shape)} {t.dtype}; expected "
                                  f"{shape} {dt}")
-            if not t.is_contiguous():
-                raise ValueError(f"cg_update: {name} must be contiguous")
-            if t.device != device:
-                raise ValueError(f"cg_update: {name} on {t.device}; the state is on {device}")
-        if device.type != "cuda":
-            raise ValueError(f"cg_update: the state is on {device}; it must be on a CUDA device")
+        _build.check_operands("cg_update", tuple(want), tuple(t for t, _, _ in want.values()))
         self.plan = launch_plan(n)
         self.x, self.r, self.p, self.rz, self.rr = x, r, p, rz, rr
         self.thresh, self.it, self.dead = thresh, it, dead
         self.active = ~(rr <= thresh) & ~dead
         self.bad = torch.zeros(B, dtype=torch.bool, device=device)
         self.part = torch.zeros((B, self.plan.cluster), dtype=dtype, device=device)
-        lib, _, _ = _build.load_library()
-        f32 = dtype == torch.float32
-        self._alpha = lib.vbicm_cg_alpha_step_f32 if f32 else lib.vbicm_cg_alpha_step_f64
-        self._beta = lib.vbicm_cg_beta_step_f32 if f32 else lib.vbicm_cg_beta_step_f64
+        self._alpha = _build.entry("cg_alpha_step", dtype)
+        self._beta = _build.entry("cg_beta_step", dtype)
         self._host = _CgHost(*(t.data_ptr() for t in (x, r, p, rz, rr, thresh, it, dead,
                                                       self.active, self.bad, self.part)),
                              B, n, self.plan.cluster, self.plan.slice)
@@ -219,6 +212,4 @@ def kernel_fit(dtype, beta: bool, cluster: int):
     """(clusters resident at once, registers a thread, local-memory bytes a
     thread) of the alpha or beta kernel in ``dtype`` on the current device;
     None where it cannot launch that cluster."""
-    lib, _, _ = _build.load_library()
-    fn = lib.vbicm_cg_fit_f32 if dtype == torch.float32 else lib.vbicm_cg_fit_f64
-    return _build.kernel_fit(fn, 3, int(beta), cluster)
+    return _build.kernel_fit(_build.entry("cg_fit", dtype), 3, int(beta), cluster)

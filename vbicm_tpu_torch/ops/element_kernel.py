@@ -38,16 +38,11 @@ def element_affine_matvec_kernel(ke_parts, lm, row_ptr, ent, coeffs, u):
     for edof 8 ke_parts and lm 16-byte aligned (the kernel reads their rows
     as 16-byte vectors). Returns q (B, ndof) in u's dtype.
 
-    ``element_affine_matvec_kernel.launches`` counts the kernel's launches.
+    Counter ``element_affine.launches`` (``utils.trace``): the kernel's
+    launches.
     """
     if u.device.type == "cpu":
         return element_affine_matvec(ke_parts, lm, coeffs, u, u.shape[-1])
-    tensors = (ke_parts, lm, row_ptr, ent, coeffs, u)
-    dtype = u.dtype
-    if dtype not in (torch.float32, torch.float64) or ke_parts.dtype != dtype \
-            or coeffs.dtype != dtype:
-        raise TypeError(f"element_affine_matvec_kernel: dtypes ke_parts {ke_parts.dtype}, "
-                        f"coeffs {coeffs.dtype}, u {dtype}; all must be float32 or all float64")
     if any(t.dtype != torch.int32 for t in (lm, row_ptr, ent)):
         raise TypeError(f"element_affine_matvec_kernel: lm, row_ptr, ent dtypes "
                         f"{[t.dtype for t in (lm, row_ptr, ent)]}; all must be int32")
@@ -63,35 +58,19 @@ def element_affine_matvec_kernel(ke_parts, lm, row_ptr, ent, coeffs, u):
     if edof not in EDOFS:
         raise ValueError(f"element_affine_matvec_kernel: edof {edof}; the kernel takes "
                          f"{EDOFS}")
-    for name, t in zip(("ke_parts", "lm", "row_ptr", "ent", "coeffs", "u"), tensors):
-        if not t.is_contiguous():
-            raise ValueError(f"element_affine_matvec_kernel: {name} must be contiguous")
-    if edof == 8 and (ke_parts.data_ptr() % 16 or lm.data_ptr() % 16):
-        raise ValueError("element_affine_matvec_kernel: ke_parts and lm must start on a "
-                         "16-byte boundary for edof 8")
-    device = u.device
-    if device.type != "cuda" or any(t.device != device for t in tensors):
-        raise ValueError(f"element_affine_matvec_kernel: tensors on "
-                         f"{[str(t.device) for t in tensors]}; all must be on one CUDA device "
-                         "(or u on the CPU)")
-
+    # quad4 rows of ke_parts and lm are read as 16-byte vectors
+    vec = 16 if edof == 8 else 0
+    device = _build.check_operands(
+        "element_affine_matvec_kernel", ("ke_parts", "coeffs", "u", "lm", "row_ptr", "ent"),
+        (ke_parts, coeffs, u, lm, row_ptr, ent), floats=3, align=(vec, 0, 0, vec))
+    dtype = u.dtype
     q = torch.empty_like(u)
     if B > 0:
-        lib, _, _ = _build.load_library()
-        fn = (lib.vbicm_element_affine_f32 if dtype == torch.float32
-              else lib.vbicm_element_affine_f64)
-        with torch.cuda.device(device):
-            err = fn(ke_parts.data_ptr(), lm.data_ptr(), row_ptr.data_ptr(), ent.data_ptr(),
-                     coeffs.data_ptr(), u.data_ptr(), q.data_ptr(), B, ndof, nele, edof,
-                     torch.cuda.current_stream(device).cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"element_affine kernel launch failed with CUDA error {err} "
-                               f"(B={B}, ndof={ndof}, nele={nele}, edof={edof}, {dtype})")
-        element_affine_matvec_kernel.launches += 1
+        _build.launch("element_affine", dtype, device,
+                      (ke_parts.data_ptr(), lm.data_ptr(), row_ptr.data_ptr(), ent.data_ptr(),
+                       coeffs.data_ptr(), u.data_ptr(), q.data_ptr(), B, ndof, nele, edof),
+                      lambda: f"(B={B}, ndof={ndof}, nele={nele}, edof={edof}, {dtype})")
     return q
-
-
-element_affine_matvec_kernel.launches = 0
 
 
 def launch_plan(B: int, ndof: int, edof: int, dtype=torch.float32):
@@ -100,10 +79,7 @@ def launch_plan(B: int, ndof: int, edof: int, dtype=torch.float32):
     SM holds, register entries a thread) -- for quad4 the runs of samples a
     block walks with its rows in registers, for hex8 the 8-sample tiles (no
     register entries). Builds the kernels on first use; needs a GPU."""
-    lib, _, _ = _build.load_library()
-    fn = (lib.vbicm_element_affine_plan_f32 if dtype == torch.float32
-          else lib.vbicm_element_affine_plan_f64)
-    plan = _build.kernel_fit(fn, 3, B, ndof, edof)
+    plan = _build.kernel_fit(_build.entry("element_affine_plan", dtype), 3, B, ndof, edof)
     if plan is None:
         raise ValueError(f"element_affine kernel takes no launch at B={B}, ndof={ndof}, "
                          f"edof={edof}")

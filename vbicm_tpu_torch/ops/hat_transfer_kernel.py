@@ -178,13 +178,11 @@ def hat_transfer(x, mats, cells_coarse, ratio: int, ndof_node: int, *, adjoint: 
     2 or 3 axes, 2 or 3 dofs a node, any ratio >= 2. Returns the other grid's
     vectors in x's dtype.
 
-    ``hat_transfer.launches`` counts the kernels' launches, both directions.
+    Counter ``hat_transfer.launches`` (``utils.trace``): the kernels'
+    launches, both directions.
     """
     if x.device.type == "cpu":
         return hat_transfer_reference(x, mats, cells_coarse, ratio, adjoint=adjoint)
-    dtype = x.dtype
-    if dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"hat_transfer: dtype {dtype}; the kernels take float32 or float64")
     cells_coarse = tuple(cells_coarse)
     sizes = _sizes(cells_coarse, ratio, ndof_node)
     if sizes is None:
@@ -194,42 +192,23 @@ def hat_transfer(x, mats, cells_coarse, ratio: int, ndof_node: int, *, adjoint: 
     n_in, n_out = sizes if adjoint else sizes[::-1]
     if x.ndim != 2 or x.shape[1] != n_in:
         raise ValueError(f"hat_transfer: x {tuple(x.shape)}; expected (B, {n_in})")
-    if not x.is_contiguous():
-        raise ValueError("hat_transfer: x must be contiguous")
-    if ndof_node == 2 and x.data_ptr() % (2 * x.element_size()):
-        raise ValueError("hat_transfer: x must be aligned to two values for 2 dofs a node")
-    device = x.device
-    if device.type != "cuda":
-        raise ValueError(f"hat_transfer: x on {device}; it must be on a CUDA device "
-                         "(or the CPU)")
+    # 2 dofs a node: the kernels read a node's pair as one load
+    device = _build.check_operands("hat_transfer", ("x",), (x,), floats=1,
+                                   align=(2 * x.element_size() if ndof_node == 2 else 0,))
+    dtype = x.dtype
     B = x.shape[0]
     out = torch.empty((B, n_out), dtype=dtype, device=device)
     if B > 0:
         if plan is None:
             plan = launch_plan(B, cells_coarse, ratio, ndof_node, x.element_size())
-        lib, _, _ = _build.load_library()
-        f32 = dtype == torch.float32
         cz, cy, cx = (0, *cells_coarse) if len(cells_coarse) == 2 else cells_coarse
-        stream = torch.cuda.current_stream(device).cuda_stream
         if adjoint:
-            fn = lib.vbicm_hat_restrict_f32 if f32 else lib.vbicm_hat_restrict_f64
-            args = (x.data_ptr(), out.data_ptr(), B, len(cells_coarse), ndof_node, ratio, cz,
-                    cy, cx, plan.tz, plan.ty, stream)
+            name, tail = "hat_restrict", (plan.tz, plan.ty)
         else:
-            fn = lib.vbicm_hat_prolong_f32 if f32 else lib.vbicm_hat_prolong_f64
-            args = (x.data_ptr(), out.data_ptr(), B, len(cells_coarse), ndof_node, ratio, cz,
-                    cy, cx, plan.lines, stream)
-        if device.index == torch.cuda.current_device():
-            err = fn(*args)
-        else:
-            with torch.cuda.device(device):
-                err = fn(*args)
-        if err != 0:
-            raise RuntimeError(f"hat_{'restrict' if adjoint else 'prolong'} kernel launch "
-                               f"failed with CUDA error {err} (B={B}, cells {cells_coarse}, "
-                               f"ratio {ratio}, {ndof_node} dofs a node, {plan}, {dtype})")
-        hat_transfer.launches += 1
+            name, tail = "hat_prolong", (plan.lines,)
+        _build.launch(name, dtype, device,
+                      (x.data_ptr(), out.data_ptr(), B, len(cells_coarse), ndof_node, ratio, cz,
+                       cy, cx, *tail),
+                      lambda: f"(B={B}, cells {cells_coarse}, ratio {ratio}, {ndof_node} dofs a "
+                              f"node, {plan}, {dtype})", "hat_transfer")
     return out
-
-
-hat_transfer.launches = 0

@@ -37,37 +37,22 @@ def fma_peak_probe(a, b, nfma: int):
     b (B, XLP), both float32 or both float64. CPU tensors run
     :func:`fma_peak_probe_reference`; CUDA tensors the kernel.
 
-    ``fma_peak_probe.launches`` counts the kernel's launches.
+    Counter ``fma_probe.launches`` (``utils.trace``): the kernel's
+    launches.
     """
     if a.device.type == "cpu" and b.device.type == "cpu":
         return fma_peak_probe_reference(a, b, nfma)
-    if a.device.type != "cuda" or b.device != a.device:
-        raise ValueError(f"fma_peak_probe: tensors on {a.device}, {b.device}; both must be on "
-                         "one CUDA device (or both on the CPU)")
-    if a.dtype not in (torch.float32, torch.float64) or b.dtype != a.dtype:
-        raise TypeError(f"fma_peak_probe: dtypes {a.dtype}, {b.dtype}; both must be float32 "
-                        "or both float64")
     if b.dim() != 2 or a.dim() != 2 or a.shape[0] != b.shape[0] or a.shape[1] % b.shape[1]:
         raise ValueError(f"fma_peak_probe: shapes a {tuple(a.shape)}, b {tuple(b.shape)}; "
                          "need a (B, NY*XLP) and b (B, XLP)")
-    if not (a.is_contiguous() and b.is_contiguous()):
-        raise ValueError("fma_peak_probe: a and b must be contiguous")
     if nfma < 0:
         raise ValueError(f"fma_peak_probe: nfma must be >= 0, got {nfma}")
+    device = _build.check_operands("fma_peak_probe", ("a", "b"), (a, b), floats=2)
     B, XLP = b.shape
     NY = a.shape[1] // XLP
     out = torch.empty_like(a)
     if a.numel() > 0:
-        lib, _, _ = _build.load_library()
-        fn = lib.vbicm_fma_probe_f32 if a.dtype == torch.float32 else lib.vbicm_fma_probe_f64
-        with torch.cuda.device(a.device):
-            err = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), B, NY, XLP, nfma,
-                     torch.cuda.current_stream(a.device).cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"fma_probe kernel launch failed with CUDA error {err} "
-                               f"(B={B}, NY={NY}, XLP={XLP}, nfma={nfma}, {a.dtype})")
-        fma_peak_probe.launches += 1
+        _build.launch("fma_probe", a.dtype, device,
+                      (a.data_ptr(), b.data_ptr(), out.data_ptr(), B, NY, XLP, nfma),
+                      lambda: f"(B={B}, NY={NY}, XLP={XLP}, nfma={nfma}, {a.dtype})")
     return out
-
-
-fma_peak_probe.launches = 0

@@ -36,6 +36,8 @@ random-field family, ``prob.randomfield``), batched over fields.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import scipy.linalg
 import torch
@@ -334,63 +336,47 @@ def pcg_lane_use(runs, maxiter=None):
     return 100.0 * done / slots if slots else None
 
 
-class MatfreeAffineSolver:
-    """``solve(coeffs (B, P), f (B, ndof)) -> u (B, ndof)`` for
-    ``K(c) u = f`` on the free dofs, with the adjoint backward pass; built by
-    :func:`make_matfree_affine_solver`. ``last_cg_iters`` holds the per-lane
-    CG iteration counts of the last solve's CG runs (the first solve and
-    each refinement), as device tensors."""
+def _masked(op, mask, x):
+    """``op`` on the free dofs of x (``mask`` 1) and the identity on the
+    fixed ones."""
+    return op(x * mask) * mask + x * (1.0 - mask)
 
-    def __init__(self, ke_parts, lm, free_mask, ndof, *, tol, maxiter, cg_dtype, refine_iters,
-                 preconditioner, affine_matvec, diag_parts, refine_residual):
-        if refine_residual == "compensated":
-            raise NotImplementedError(
-                "refine_residual='compensated' is not ported: on the H100 the float64 "
-                "residual is the cheaper one (PERF.md; ROADMAP Queue 1 item 12)")
-        if refine_residual not in ("f64", "split_f32"):
-            raise ValueError(f"unknown refine_residual {refine_residual!r}")
-        wdt = ke_parts.dtype
-        self.cg_dtype = wdt if cg_dtype is None else cg_dtype
-        if refine_residual == "split_f32" and self.cg_dtype != torch.float32:
-            raise ValueError("refine_residual='split_f32' needs cg_dtype=float32")
-        # the element path's operator (blocks, dof map and incidence tables),
-        # built once; a given affine_matvec (e.g. a stencil) replaces it
-        self.element = (ElementOperator(ke_parts, lm, ndof, (wdt, self.cg_dtype))
-                        if affine_matvec is None else None)
+
+class _MatfreeSolver:
+    """The matrix-free solve that :class:`MatfreeAffineSolver` and
+    :class:`FieldSolver` share: PCG in the CG dtype on the free dofs with
+    the Jacobi inverse diagonal handed to ``preconditioner(coeffs, diag_inv,
+    r) -> z`` (None: Jacobi), ``refine_iters`` refinements, and the adjoint
+    backward pass (:class:`_MatfreeSolve`). A solver gives its operator and
+    diagonal in the CG dtype (``_operator``), its refinement residual
+    (``_residual``) and its coefficient cotangent (``cotangent``).
+    ``last_cg_iters`` holds the per-lane CG iteration counts of the last
+    solve's CG runs (the first solve and each refinement), as device
+    tensors."""
+
+    def __init__(self, free_mask, ndof, *, tol, maxiter, cg_dtype, refine_iters, preconditioner):
+        self.cg_dtype = cg_dtype
+        self.free_mask = free_mask
+        self.mask_cg = free_mask.to(cg_dtype)
         self.ndof = int(ndof)
         self.tol = float(tol)
         self.maxiter = int(maxiter)
         self.refine_iters = int(refine_iters)
-        self.refine_residual = refine_residual
         self.preconditioner = preconditioner
-        self.affine_matvec = affine_matvec
-        self.free_mask = free_mask
-        self.mask_cg = free_mask.to(self.cg_dtype)
-        if diag_parts is None:
-            diag_parts = torch.stack([jacobi_diagonal(ke_parts[p], lm, ndof)
-                                      for p in range(ke_parts.shape[0])])
-        self.diag_parts = diag_parts.to(self.cg_dtype)
         self.last_cg_iters = []
 
-    def affine(self, coeffs, u):
-        """``K(c) u`` in u's dtype: the given fused apply, or the element
-        path (the element kernel on CUDA tensors, ``ops.element_kernel``)."""
-        if self.affine_matvec is not None:
-            return self.affine_matvec(coeffs, u)
-        return self.element.affine(coeffs, u)
+    def cg_operator(self, coeffs):
+        """(matvec, diag_inv): the CG's operator for ``coeffs`` (identity on
+        the fixed dofs) and its Jacobi inverse diagonal, in the CG dtype."""
+        op, d = self._operator(coeffs)
+        mask = self.mask_cg
+        minv = 1.0 / torch.where(mask > 0, torch.where(d == 0, 1.0, d), 1.0)
+        return functools.partial(_masked, op, mask), minv
 
     def _cg_once(self, coeffs, b):
         """One PCG solve in the CG dtype, for the masked rhs b."""
         with span("cg.run"):
-            mask = self.mask_cg
-            c = coeffs.to(self.cg_dtype)
-
-            def mv(x):
-                return self.affine(c, x * mask) * mask + x * (1.0 - mask)
-
-            d = c @ self.diag_parts
-            d = torch.where(mask > 0, torch.where(d == 0, 1.0, d), 1.0)
-            minv = 1.0 / d
+            mv, minv = self.cg_operator(coeffs)
             if self.preconditioner is not None:
                 prec = lambda r: self.preconditioner(coeffs, minv, r)  # noqa: E731
             else:
@@ -400,25 +386,12 @@ class MatfreeAffineSolver:
         self.last_cg_iters.append(iters)
         return x
 
-    def _residual(self, coeffs, b, x):
-        with span("refine.residual"):
-            mask = self.free_mask
-            if self.refine_residual == "split_f32":
-                # x = x1 + x2 exactly in two float32 halves; the residual's
-                # error is the float32 rounding of the two applies
-                x1 = x.to(torch.float32)
-                x2 = (x - x1.to(x.dtype)).to(torch.float32)
-                q = (self.affine(coeffs, x1 * self.mask_cg).to(x.dtype)
-                     + self.affine(coeffs, x2 * self.mask_cg).to(x.dtype))
-                return (b - q) * mask
-            # fixed-dof identity term cancels since x, r live on free dofs
-            return b * mask - self.affine(coeffs, x * mask) * mask
-
     def solve_once(self, coeffs, b):
         self.last_cg_iters = []
         x = self._cg_once(coeffs, b).to(b.dtype)
         for _ in range(self.refine_iters):
-            r = self._residual(coeffs, b, x)
+            with span("refine.residual"):
+                r = self._residual(coeffs, b, x)
             x = x + self._cg_once(coeffs, r).to(b.dtype)
         return x * self.free_mask
 
@@ -444,24 +417,83 @@ class _MatfreeSolve(torch.autograd.Function):
         with span("solve.adjoint"):
             if graph:
                 # create_graph: the adjoint solve through the solve itself and
-                # the parts' applies through _PartApply, so that the backward
-                # pass can be differentiated (u is this solve's tracked output)
+                # the cotangent from the tracked output u, so that the
+                # backward pass can be differentiated
                 w = _MatfreeSolve.apply(coeffs, ubar, solver)
             else:
                 w = solver.solve_once(coeffs, ubar)
         cbar = None
         if ctx.needs_input_grad[0]:
             with span("solve.cotangent"):
-                # cbar_p = -<w, K_p u> on the free dofs, per sample: K_p u is
-                # the affine apply with unit coefficients
-                unit = torch.eye(coeffs.shape[1], dtype=u.dtype, device=u.device)
-                cbar = []
-                for p in range(coeffs.shape[1]):
-                    c = unit[p].expand(u.shape[0], -1)
-                    ku = _PartApply.apply(u, c, solver) if graph else solver.affine(c, u)
-                    cbar.append(-_dot(w, ku * solver.free_mask))
-                cbar = torch.stack(cbar, dim=-1).to(coeffs.dtype)
+                cbar = solver.cotangent(coeffs, w, u, graph).to(coeffs.dtype)
         return cbar, w, None
+
+
+class MatfreeAffineSolver(_MatfreeSolver):
+    """``solve(coeffs (B, P), f (B, ndof)) -> u (B, ndof)`` for
+    ``K(c) u = f`` on the free dofs, with the adjoint backward pass; built by
+    :func:`make_matfree_affine_solver`."""
+
+    def __init__(self, ke_parts, lm, free_mask, ndof, *, tol, maxiter, cg_dtype, refine_iters,
+                 preconditioner, affine_matvec, diag_parts, refine_residual):
+        if refine_residual == "compensated":
+            raise NotImplementedError(
+                "refine_residual='compensated' is not ported: on the H100 the float64 "
+                "residual is the cheaper one (PERF.md; ROADMAP Queue 1 item 12)")
+        if refine_residual not in ("f64", "split_f32"):
+            raise ValueError(f"unknown refine_residual {refine_residual!r}")
+        wdt = ke_parts.dtype
+        cg_dtype = wdt if cg_dtype is None else cg_dtype
+        if refine_residual == "split_f32" and cg_dtype != torch.float32:
+            raise ValueError("refine_residual='split_f32' needs cg_dtype=float32")
+        super().__init__(free_mask, ndof, tol=tol, maxiter=maxiter, cg_dtype=cg_dtype,
+                         refine_iters=refine_iters, preconditioner=preconditioner)
+        # the element path's operator (blocks, dof map and incidence tables),
+        # built once; a given affine_matvec (e.g. a stencil) replaces it
+        self.element = (ElementOperator(ke_parts, lm, ndof, (wdt, self.cg_dtype))
+                        if affine_matvec is None else None)
+        self.refine_residual = refine_residual
+        self.affine_matvec = affine_matvec
+        if diag_parts is None:
+            diag_parts = torch.stack([jacobi_diagonal(ke_parts[p], lm, ndof)
+                                      for p in range(ke_parts.shape[0])])
+        self.diag_parts = diag_parts.to(self.cg_dtype)
+
+    def affine(self, coeffs, u):
+        """``K(c) u`` in u's dtype: the given fused apply, or the element
+        path (the element kernel on CUDA tensors, ``ops.element_kernel``)."""
+        if self.affine_matvec is not None:
+            return self.affine_matvec(coeffs, u)
+        return self.element.affine(coeffs, u)
+
+    def _operator(self, coeffs):
+        c = coeffs.to(self.cg_dtype)
+        return functools.partial(self.affine, c), c @ self.diag_parts
+
+    def _residual(self, coeffs, b, x):
+        mask = self.free_mask
+        if self.refine_residual == "split_f32":
+            # x = x1 + x2 exactly in two float32 halves; the residual's
+            # error is the float32 rounding of the two applies
+            x1 = x.to(torch.float32)
+            x2 = (x - x1.to(x.dtype)).to(torch.float32)
+            q = (self.affine(coeffs, x1 * self.mask_cg).to(x.dtype)
+                 + self.affine(coeffs, x2 * self.mask_cg).to(x.dtype))
+            return (b - q) * mask
+        # fixed-dof identity term cancels since x, r live on free dofs
+        return b * mask - self.affine(coeffs, x * mask) * mask
+
+    def cotangent(self, coeffs, w, u, graph):
+        """``cbar_p = -<w, K_p u>`` on the free dofs, per sample: K_p u is
+        the affine apply with unit coefficients, through :class:`_PartApply`
+        under a graph."""
+        unit = torch.eye(coeffs.shape[1], dtype=u.dtype, device=u.device)
+        cbar = []
+        for p in range(coeffs.shape[1]):
+            c = unit[p].expand(u.shape[0], -1)
+            ku = _PartApply.apply(u, c, self) if graph else self.affine(c, u)
+            cbar.append(-_dot(w, ku * self.free_mask))
+        return torch.stack(cbar, dim=-1)
 
 
 class _PartApply(torch.autograd.Function):
@@ -555,26 +587,19 @@ def _grid_layout(lm_np, ndof: int, grid):
     return cells, lpos
 
 
-class FieldSolver:
+class FieldSolver(_MatfreeSolver):
     """``solve(E (B, nele), f (B, ndof)) -> u (B, ndof)`` for ``K(E) u = f``
     on the free dofs with ``K(E) = sum_e E_e ke_unit_e``, the adjoint
     backward pass and its second derivative; built by
-    :func:`make_field_solver`. ``last_cg_iters`` holds the per-lane CG
-    iteration counts of the last solve's CG runs (the first solve and each
-    refinement), as device tensors."""
+    :func:`make_field_solver`."""
 
     def __init__(self, ke_unit, lm, free_mask, ndof, *, tol, maxiter, cg_dtype, refine_iters,
                  preconditioner, grid):
+        super().__init__(free_mask, ndof, tol=tol, maxiter=maxiter,
+                         cg_dtype=ke_unit.dtype if cg_dtype is None else cg_dtype,
+                         refine_iters=refine_iters, preconditioner=preconditioner)
         self.ke_unit = ke_unit
-        self.cg_dtype = ke_unit.dtype if cg_dtype is None else cg_dtype
         self.ke_cg = ke_unit.to(self.cg_dtype)
-        self.free_mask = free_mask
-        self.mask_cg = free_mask.to(self.cg_dtype)
-        self.ndof = int(ndof)
-        self.tol = float(tol)
-        self.maxiter = int(maxiter)
-        self.refine_iters = int(refine_iters)
-        self.preconditioner = preconditioner
         lm_np = np.asarray(lm.cpu() if isinstance(lm, torch.Tensor) else lm, dtype=np.int64)
         self.nele, self.edof = lm_np.shape
         device = ke_unit.device
@@ -596,7 +621,6 @@ class FieldSolver:
         # per-element unit diagonals: the E-weighted Jacobi diagonal is one
         # scatter of scaled values
         self.diag_e = torch.diagonal(self.ke_cg, dim1=-2, dim2=-1)
-        self.last_cg_iters = []
 
     def gather(self, x):
         """(B, ndof) -> (B, nele, edof) element dof values."""
@@ -626,74 +650,27 @@ class FieldSolver:
             out = t if out is None else out + t
         return out.reshape(B, self.ndof)
 
-    def matvec(self, ke, mask, E, x):
-        """``K(E) x`` on the free dofs (identity on the fixed ones) in x's
-        dtype: the element products with the constant blocks ke, each
-        element's scaled by its E, scattered."""
-        qe = torch.einsum("eij,bej->bei", ke, self.gather(x * mask))
-        return self.scatter(E[:, :, None].to(qe.dtype) * qe) * mask + x * (1.0 - mask)
+    def _products(self, ke, E, x):
+        """``K(E) x`` in x's dtype: the element products with the constant
+        blocks ke, each element's scaled by its E, scattered."""
+        qe = torch.einsum("eij,bej->bei", ke, self.gather(x))
+        return self.scatter(E[:, :, None].to(qe.dtype) * qe)
 
-    def _cg_once(self, E, b):
-        with span("cg.run"):
-            Ec = E.to(self.cg_dtype)
-            d = self.scatter(Ec[:, :, None] * self.diag_e)  # diag K(E)
-            minv = 1.0 / torch.where(self.mask_cg > 0, torch.where(d == 0, 1.0, d), 1.0)
-            if self.preconditioner is not None:
-                prec = lambda r: self.preconditioner(E, minv, r)  # noqa: E731
-            else:
-                prec = lambda r: minv * r  # noqa: E731
-            bc = (b * self.free_mask).to(self.cg_dtype)
-            x, iters, _ = pcg(lambda x: self.matvec(self.ke_cg, self.mask_cg, Ec, x), bc, prec,
-                              tol=self.tol, maxiter=self.maxiter)
-        self.last_cg_iters.append(iters)
-        return x
+    def _operator(self, E):
+        Ec = E.to(self.cg_dtype)
+        return (functools.partial(self._products, self.ke_cg, Ec),
+                self.scatter(Ec[:, :, None] * self.diag_e))
 
-    def solve_once(self, E, b):
-        self.last_cg_iters = []
-        x = self._cg_once(E, b).to(b.dtype)
-        for _ in range(self.refine_iters):
-            mask = self.free_mask
-            with span("refine.residual"):
-                r = b * mask - self.matvec(self.ke_unit, mask, E, x) * mask
-            x = x + self._cg_once(E, r).to(b.dtype)
-        return x * self.free_mask
+    def _residual(self, E, b, x):
+        mask = self.free_mask
+        return b * mask - _masked(functools.partial(self._products, self.ke_unit, E), mask,
+                                  x) * mask
 
-    def field_cotangent(self, w, u):
+    def cotangent(self, E, w, u, graph):
         """``Ebar_e = -w_e^T (ke_unit_e u_e)`` per field, (B, nele)."""
         mask = self.free_mask
         ku = torch.einsum("eij,bej->bei", self.ke_unit, self.gather(u * mask))
         return -torch.einsum("bei,bei->be", self.gather(w * mask), ku)
-
-    def __call__(self, E, f):
-        return _FieldSolve.apply(E, f, self)
-
-
-class _FieldSolve(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, E, f, solver):
-        with span("solve.forward"):
-            u = solver.solve_once(E, f)
-        ctx.save_for_backward(E, u)
-        ctx.solver = solver
-        return u
-
-    @staticmethod
-    def backward(ctx, ubar):
-        E, u = ctx.saved_tensors
-        solver = ctx.solver
-        with span("solve.adjoint"):
-            if torch.is_grad_enabled():
-                # create_graph: the adjoint solve through the solve itself and
-                # the cotangent from the tracked output u, so that the
-                # backward pass can be differentiated
-                w = _FieldSolve.apply(E, ubar, solver)
-            else:
-                w = solver.solve_once(E, ubar)
-        Ebar = None
-        if ctx.needs_input_grad[0]:
-            with span("solve.cotangent"):
-                Ebar = solver.field_cotangent(w, u).to(E.dtype)
-        return Ebar, w, None
 
 
 def make_field_solver(

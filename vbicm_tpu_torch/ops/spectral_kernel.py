@@ -121,30 +121,21 @@ def spectral_apply_batched(V, g, coeffs, b, *, return_coords=False):
     eigen-coordinates a when ``return_coords``. The output tile is
     :func:`launch_plan`'s.
 
-    ``spectral_apply_batched.launches`` counts applies, one a call; an apply
-    is two kernel launches (a, then x), four when the plan splits the
-    k-range (each product's second pass).
+    Counter ``spectral_apply.launches`` (``utils.trace``): applies, one a
+    call; an apply is two kernel launches (a, then x), four when the plan
+    splits the k-range (each product's second pass).
     """
     tensors = (V, g, coeffs, b)
     if all(t.device.type == "cpu" for t in tensors):
         return spectral_apply_reference(V, g, coeffs, b, return_coords=return_coords)
-    device = V.device
-    if device.type != "cuda" or any(t.device != device for t in tensors):
-        raise ValueError(f"spectral_apply_batched: tensors on {[str(t.device) for t in tensors]}; "
-                         "all must be on one CUDA device (or all on the CPU)")
-    dtype = V.dtype
-    if dtype not in (torch.float32, torch.float64) or any(t.dtype != dtype for t in tensors):
-        raise TypeError(f"spectral_apply_batched: dtypes {[t.dtype for t in tensors]}; "
-                        "all must be float32 or all float64")
     n = V.shape[0]
     B = b.shape[0]
     if V.shape != (n, n) or g.shape != (n,) or coeffs.shape != (B, 2) or b.shape != (B, n):
         raise ValueError(f"spectral_apply_batched: shapes V {tuple(V.shape)}, g {tuple(g.shape)}, "
                          f"coeffs {tuple(coeffs.shape)}, b {tuple(b.shape)}")
-    for name, t in (("V", V), ("g", g), ("coeffs", coeffs), ("b", b)):
-        if not t.is_contiguous():
-            raise ValueError(f"spectral_apply_batched: {name} must be contiguous")
-
+    device = _build.check_operands("spectral_apply_batched", ("V", "g", "coeffs", "b"), tensors,
+                                   floats=4)
+    dtype = V.dtype
     x = torch.empty((B, n), dtype=dtype, device=device)
     a = torch.empty((B, n), dtype=dtype, device=device)  # launch 2 reads it
     if B > 0:
@@ -152,17 +143,9 @@ def spectral_apply_batched(V, g, coeffs, b, *, return_coords=False):
         vec = plan.vec and all(t.data_ptr() % 16 == 0 for t in (V, b, a))
         # the split's partial sums (S, B, n)
         ws = torch.empty((plan.split, B, n), dtype=dtype, device=device) if plan.split > 1 else None
-        lib, _, _ = _build.load_library()
-        fn = lib.vbicm_spectral_apply_f32 if dtype == torch.float32 else lib.vbicm_spectral_apply_f64
-        with torch.cuda.device(device):
-            err = fn(V.data_ptr(), g.data_ptr(), coeffs.data_ptr(), b.data_ptr(), x.data_ptr(),
-                     a.data_ptr(), None if ws is None else ws.data_ptr(), B, n, plan.bm, plan.bn,
-                     plan.split, int(vec), torch.cuda.current_stream(device).cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"spectral_apply kernel launch failed with CUDA error {err} "
-                               f"(B={B}, n={n}, {plan}, vec={vec}, {dtype})")
-        spectral_apply_batched.launches += 1
+        _build.launch("spectral_apply", dtype, device,
+                      (V.data_ptr(), g.data_ptr(), coeffs.data_ptr(), b.data_ptr(), x.data_ptr(),
+                       a.data_ptr(), None if ws is None else ws.data_ptr(), B, n, plan.bm, plan.bn,
+                       plan.split, int(vec)),
+                      lambda: f"(B={B}, n={n}, {plan}, vec={vec}, {dtype})")
     return (x, a) if return_coords else x
-
-
-spectral_apply_batched.launches = 0

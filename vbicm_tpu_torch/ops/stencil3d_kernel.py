@@ -87,9 +87,7 @@ def launch_plan_3d(B: int, NZ: int, NY: int, NX3: int, dtype, device) -> Stencil
     key = (B, NZ, NY, NX3, dtype, device)
     plan = _PLANS.get(key)
     if plan is None:
-        lib, _, _ = _build.load_library()
-        fn = (lib.vbicm_stencil3d_affine_fit_f32 if dtype == torch.float32
-              else lib.vbicm_stencil3d_affine_fit_f64)
+        fn = _build.entry("stencil3d_affine_fit", dtype)
         with torch.cuda.device(device):
             def fit(g):
                 return _build.kernel_fit(fn, 5, NX3, g)
@@ -186,20 +184,14 @@ def stencil3d_affine_matvec(W, w_planes, coeffs, u):
     tiling (every tiling gives the same bits), and W, which may stay on the
     host, gives only the grid's shape. Returns q in u's dtype.
 
-    ``stencil3d_affine_matvec.launches`` counts the kernel's launches.
+    Counter ``stencil3d_affine.launches`` (``utils.trace``): the kernel's
+    launches.
     """
     if u.device.type == "cpu":
         return stencil3d_affine_reference(W, coeffs, u)
-    tensors = (w_planes, coeffs, u)
-    device = u.device
-    if device.type != "cuda" or any(t.device != device for t in tensors):
-        raise ValueError(f"stencil3d_affine_matvec: tensors on "
-                         f"{[str(t.device) for t in tensors]}; all must be on one CUDA device "
-                         "(or u on the CPU)")
+    device = _build.check_operands("stencil3d_affine_matvec", ("w_planes", "coeffs", "u"),
+                                   (w_planes, coeffs, u), floats=3, align=(16,))
     dtype = u.dtype
-    if dtype not in (torch.float32, torch.float64) or any(t.dtype != dtype for t in tensors):
-        raise TypeError(f"stencil3d_affine_matvec: dtypes {[t.dtype for t in tensors]}; "
-                        "all must be float32 or all float64")
     NZ, NY, NX = W.shape[1:4]
     NX3 = 3 * NX
     B = u.shape[0]
@@ -208,26 +200,11 @@ def stencil3d_affine_matvec(W, w_planes, coeffs, u):
         raise ValueError(f"stencil3d_affine_matvec: shapes W {tuple(W.shape)}, w_planes "
                          f"{tuple(w_planes.shape)}, coeffs {tuple(coeffs.shape)}, "
                          f"u {tuple(u.shape)}")
-    for name, t in (("w_planes", w_planes), ("coeffs", coeffs), ("u", u)):
-        if not t.is_contiguous():
-            raise ValueError(f"stencil3d_affine_matvec: {name} must be contiguous")
-    if w_planes.data_ptr() % 16:
-        raise ValueError("stencil3d_affine_matvec: w_planes must be 16-byte aligned")
-
     q = torch.empty_like(u)
     if B > 0:
         plan = launch_plan_3d(B, NZ, NY, NX3, dtype, device)
-        lib, _, _ = _build.load_library()
-        fn = (lib.vbicm_stencil3d_affine_f32 if dtype == torch.float32
-              else lib.vbicm_stencil3d_affine_f64)
-        with torch.cuda.device(device):
-            err = fn(w_planes.data_ptr(), coeffs.data_ptr(), u.data_ptr(), q.data_ptr(),
-                     B, NZ, NY, NX3, plan.groups, torch.cuda.current_stream(device).cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"stencil3d_affine kernel launch failed with CUDA error {err} "
-                               f"(B={B}, NZ={NZ}, NY={NY}, NX3={NX3}, {plan}, {dtype})")
-        stencil3d_affine_matvec.launches += 1
+        _build.launch("stencil3d_affine", dtype, device,
+                      (w_planes.data_ptr(), coeffs.data_ptr(), u.data_ptr(), q.data_ptr(),
+                       B, NZ, NY, NX3, plan.groups),
+                      lambda: f"(B={B}, NZ={NZ}, NY={NY}, NX3={NX3}, {plan}, {dtype})")
     return q
-
-
-stencil3d_affine_matvec.launches = 0

@@ -100,9 +100,7 @@ def launch_plan(B: int, NY: int, NX2: int, dtype, device, rows_per_block=None) -
     key = (B, NY, NX2, dtype, device, rows_per_block)
     plan = _PLANS.get(key)
     if plan is None:
-        lib, _, _ = _build.load_library()
-        fn = (lib.vbicm_stencil_affine_fit_f32 if dtype == torch.float32
-              else lib.vbicm_stencil_affine_fit_f64)
+        fn = _build.entry("stencil_affine_fit", dtype)
         with torch.cuda.device(device):
             plan = plan_tiling(B, NY, NX2, lambda rt: _build.kernel_fit(fn, 3, NX2, rt),
                                torch.cuda.get_device_properties(device).multi_processor_count,
@@ -167,54 +165,31 @@ def stencil_affine_matvec(W, w_planes, coeffs, u, rows_per_block=None):
     ``rows_per_block`` grid rows a block if given (None: the plan's), all
     bitwise equal. Returns q (B, 2*NY*NX) in u's dtype.
 
-    ``stencil_affine_matvec.launches`` counts the launches with the plan's
-    rows or one row, ``stencil_affine_matvec.rows_launches`` those with a
-    forced ``rows_per_block`` > 1.
+    Counters (``utils.trace``): ``stencil_affine.launches``, the launches
+    with the plan's rows or one row; ``stencil_affine_rows.launches``, those
+    with a forced ``rows_per_block`` > 1.
     """
     if rows_per_block is not None and not (isinstance(rows_per_block, int)
                                            and rows_per_block >= 1):
         raise ValueError(f"rows_per_block must be None or a positive int, got {rows_per_block!r}")
     if u.device.type == "cpu":
         return stencil_affine_reference(W, coeffs, u)
-    tensors = (w_planes, coeffs, u)
-    device = u.device
-    if device.type != "cuda" or any(t.device != device for t in tensors):
-        raise ValueError(f"stencil_affine_matvec: tensors on {[str(t.device) for t in tensors]}; "
-                         "all must be on one CUDA device (or u on the CPU)")
-    dtype = u.dtype
-    if dtype not in (torch.float32, torch.float64) or any(t.dtype != dtype for t in tensors):
-        raise TypeError(f"stencil_affine_matvec: dtypes {[t.dtype for t in tensors]}; "
-                        "all must be float32 or all float64")
     NY, planes, NX2 = w_planes.shape
     B = u.shape[0]
     if planes != 42 or NX2 % 2 or coeffs.shape != (B, 2) or u.shape != (B, NY * NX2):
         raise ValueError(f"stencil_affine_matvec: shapes w_planes {tuple(w_planes.shape)}, "
                          f"coeffs {tuple(coeffs.shape)}, u {tuple(u.shape)}")
-    for name, t in (("w_planes", w_planes), ("coeffs", coeffs), ("u", u)):
-        if not t.is_contiguous():
-            raise ValueError(f"stencil_affine_matvec: {name} must be contiguous")
-        if t.data_ptr() % (2 * t.element_size()):
-            raise ValueError(f"stencil_affine_matvec: {name} must be aligned to two values")
-
+    pair = 2 * u.element_size()
+    device = _build.check_operands("stencil_affine_matvec", ("w_planes", "coeffs", "u"),
+                                   (w_planes, coeffs, u), floats=3, align=(pair, pair, pair))
+    dtype = u.dtype
     q = torch.empty_like(u)
     if B > 0:
         plan = launch_plan(B, NY, NX2, dtype, device, rows_per_block)
-        lib, _, _ = _build.load_library()
-        fn = (lib.vbicm_stencil_affine_f32 if dtype == torch.float32
-              else lib.vbicm_stencil_affine_f64)
-        with torch.cuda.device(device):
-            err = fn(w_planes.data_ptr(), coeffs.data_ptr(), u.data_ptr(), q.data_ptr(), B, NY,
-                     NX2, plan.rows, plan.rows_at_once, plan.run,
-                     torch.cuda.current_stream(device).cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"stencil_affine kernel launch failed with CUDA error {err} "
-                               f"(B={B}, NY={NY}, NX2={NX2}, {plan}, {dtype})")
-        if rows_per_block is None or rows_per_block == 1:
-            stencil_affine_matvec.launches += 1
-        else:
-            stencil_affine_matvec.rows_launches += 1
+        _build.launch("stencil_affine", dtype, device,
+                      (w_planes.data_ptr(), coeffs.data_ptr(), u.data_ptr(), q.data_ptr(), B, NY,
+                       NX2, plan.rows, plan.rows_at_once, plan.run),
+                      lambda: f"(B={B}, NY={NY}, NX2={NX2}, {plan}, {dtype})",
+                      None if rows_per_block is None or rows_per_block == 1
+                      else "stencil_affine_rows")
     return q
-
-
-stencil_affine_matvec.launches = 0
-stencil_affine_matvec.rows_launches = 0

@@ -195,7 +195,8 @@ def stencil_affine_matvec_mxu(m_bands, coeffs, u, NY: int, NX: int, mode: str = 
     NY*2NX). CPU tensors run :func:`stencil_affine_mxu_reference`; CUDA
     tensors (coeffs and u float32) the kernel. Returns (B, NY*2NX) float32.
 
-    ``stencil_affine_matvec_mxu.launches`` counts the kernel's launches.
+    Counter ``stencil_mxu.launches`` (``utils.trace``): the kernel's
+    launches.
     """
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}")
@@ -203,10 +204,6 @@ def stencil_affine_matvec_mxu(m_bands, coeffs, u, NY: int, NX: int, mode: str = 
     if u.device.type == "cpu":
         return stencil_affine_mxu_reference(m_bands, coeffs, u, NY, NX, mode)
     tensors = (*tables, coeffs, u)
-    device = u.device
-    if device.type != "cuda" or any(t.device != device for t in tensors):
-        raise ValueError(f"stencil_affine_matvec_mxu: tensors on {[str(t.device) for t in tensors]}; "
-                         "all must be on one CUDA device (or u on the CPU)")
     table_dtype = torch.bfloat16 if mode == "bf16x3" else torch.float32
     if (u.dtype != torch.float32 or coeffs.dtype != torch.float32
             or any(t.dtype != table_dtype for t in tables)):
@@ -220,26 +217,18 @@ def stencil_affine_matvec_mxu(m_bands, coeffs, u, NY: int, NX: int, mode: str = 
         raise ValueError(f"stencil_affine_matvec_mxu: shapes tables "
                          f"{[tuple(t.shape) for t in tables]}, coeffs {tuple(coeffs.shape)}, "
                          f"u {tuple(u.shape)} for NY={NY}, NX={NX}")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("stencil_affine_matvec_mxu: every tensor must be contiguous")
+    device = _build.check_operands("stencil_affine_matvec_mxu",
+                                   ("table 0", "table 1")[:len(tables)] + ("coeffs", "u"), tensors)
     check_launch_rules(tables, coeffs, u, NY, NX)
 
     q = torch.empty_like(u)
     if B > 0:
-        lib, _, _ = _build.load_library()
-        fn = lib.vbicm_stencil_mxu_bf16x3 if mode == "bf16x3" else lib.vbicm_stencil_mxu_f32
         lo = tables[1].data_ptr() if mode == "bf16x3" else None
-        with torch.cuda.device(device):
-            err = fn(tables[0].data_ptr(), lo, coeffs.data_ptr(), u.data_ptr(), q.data_ptr(),
-                     B, NY, NX2, torch.cuda.current_stream(device).cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"stencil_mxu kernel launch failed with CUDA error {err} "
-                               f"(B={B}, NY={NY}, NX2={NX2}, {mode})")
-        stencil_affine_matvec_mxu.launches += 1
+        _build.launch("stencil_mxu", mode, device,
+                      (tables[0].data_ptr(), lo, coeffs.data_ptr(), u.data_ptr(), q.data_ptr(),
+                       B, NY, NX2),
+                      lambda: f"(B={B}, NY={NY}, NX2={NX2}, {mode})")
     return q
-
-
-stencil_affine_matvec_mxu.launches = 0
 
 
 def check_launch_rules(tables, coeffs, u, NY: int, NX: int):
@@ -272,9 +261,7 @@ def launch_plan(B: int, NY: int, NX: int, mode: str = "bf16x3"):
     GPU."""
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}")
-    lib, _, _ = _build.load_library()
-    fn = lib.vbicm_stencil_mxu_plan_bf16x3 if mode == "bf16x3" else lib.vbicm_stencil_mxu_plan_f32
-    plan = _build.kernel_fit(fn, 3, B, NY, 2 * NX)
+    plan = _build.kernel_fit(_build.entry("stencil_mxu_plan", mode), 3, B, NY, 2 * NX)
     if plan is None:
         raise ValueError(f"stencil_mxu kernel takes no launch at B={B}, NY={NY}, NX={NX}")
     return plan
