@@ -77,14 +77,23 @@ before and read just after:
   prolongation kernels against their plain version on the benchmark cells'
   160x80 grid, the 3-D boxes and odd small grids at ratios 2-4, two calls
   bitwise equal, adjointness in float64, the launches of one 160x80 fh
-  batch (two a preconditioner call) and device time beside the bound;
+  batch (none of the plain pair, two of the fused pair a preconditioner
+  call) and device time beside the bound;
 - CG's vector updates (phase 49, ``cg_update_path``): the kernel pair
   against its plain version at the cells' (256, 26,082), small, single-lane,
   odd and ragged shapes with lanes in every state (active, converged,
   frozen, NaN residual, breakdowns), two launches bitwise equal, device time
   beside the bound, pcg on the 160x80 stencil path against the plain loop
   (per-lane iterations, the solution) and two launches a loop step on an fh
-  batch with its adjoint.
+  batch with its adjoint;
+- the two-level preconditioner's fused pair (phase 50, ``prec_path``): the
+  fused call torch.equal to the composition it replaces on the 160x80,
+  ratio-2 80x40, 32x8x8 and 64x16x16 grids in float32 and float64 (also
+  with the mean field's constant coefficients), five kernels a call, every
+  call of a 160x80 fh batch fused with two launches of the fused pair and
+  none of the plain pair, and device
+  time of each kernel and of the whole call fused and composed (the 3-D
+  fused call no slower).
 
 Phase 1 fails if a spectral, stencil, quad4 element or banded kernel spills
 registers; phases 2, 8, 13, 18 and 25 hold two calls of a kernel bitwise
@@ -645,6 +654,7 @@ def main():
     field = field_path(dev, card)
     transfer = transfer_path(dev, card)
     cgu = cg_update_path(dev, card)
+    precs = prec_path(dev, card)
 
     times[BOX_COARSE_SHAPE, torch.float32] = box["spectral_ms"][torch.float32]
     times[BOX_COARSE_SHAPE, torch.float64] = box["spectral_ms"][torch.float64]
@@ -837,6 +847,29 @@ def main():
         **{f"{k}_f64": c64["alpha"][k] for k in ("ms", "plain_ms", "bound_ms")},
         **{f"{k}_beta_f64": c64["beta"][k] for k in ("ms", "plain_ms", "bound_ms")},
     })
+    p32 = {way: precs["ms"][PREC_MAIN[0], PREC_MAIN[1], f32, way]
+           for way in ("restrict", "prolong")}
+    p64 = {way: precs["ms"][PREC_MAIN[0], PREC_MAIN[1], f64, way]
+           for way in ("restrict", "prolong")}
+    records.append({
+        "name": "hat_transfer_prec",
+        "route": "cuda",
+        "source": "vbicm_tpu_torch/csrc/hat_transfer.cu",
+        "replaces": None,  # folds the preconditioner's PyTorch ops into the transfers (#8)
+        "launches": scaled["prec_launches"] + precs["fh_counters"]["hat_transfer_prec.launches"],
+        "launches_by_path": {"scaled_160x80": scaled["prec_launches"],
+                             "fh_160x80": precs["fh_counters"]["hat_transfer_prec.launches"]},
+        **{k: p32["restrict"][k] for k in ("ms", "plain_ms", "ms_eager", "bound_ms", "bound_by",
+                                           "share_of_bound")},
+        "library_ms": None,  # no one PyTorch call computes a transfer
+        **{f"{k}_prolong": p32["prolong"][k] for k in ("ms", "plain_ms", "ms_eager", "bound_ms",
+                                                       "share_of_bound")},
+        **{f"{k}_f64": p64["restrict"][k] for k in ("ms", "plain_ms", "bound_ms")},
+        **{f"{k}_prolong_f64": p64["prolong"][k] for k in ("ms", "plain_ms", "bound_ms")},
+        **{f"call_{k}": v for k, v in precs["call_ms"][PREC_MAIN[0], PREC_MAIN[1], f32].items()},
+        "call_kernels_fused": len(precs["kernels_fused"]),
+        "call_kernels_composed": len(precs["kernels_composed"]),
+    })
     print(card)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
@@ -961,8 +994,10 @@ def scaled_path(dev, card):
     out["spectral_launches"] = launched("spectral_apply", before)
     out["stencil_launches"] = launched("stencil_affine", before)
     out["transfer_launches"] = launched("hat_transfer", before)
+    out["prec_launches"] = launched("hat_transfer_prec", before)
     cg = {k: after.get(k, 0) - before.get(k, 0)
-          for k in ("cg_update.launches", "pcg.steps.fused", "pcg.steps.plain")}
+          for k in ("cg_update.launches", "pcg.steps.fused", "pcg.steps.plain",
+                    "prec.calls.fused", "prec.calls.plain")}
     out["cg_update_launches"] = cg["cg_update.launches"]
     preds = trainer.predict(res.theta_net, res.z_net, ds.y_data[:8])
     losses = np.concatenate([res.hist_step1, res.hist_step2])
@@ -970,19 +1005,27 @@ def scaled_path(dev, card):
         fail(f"scaled trainer: non-finite losses: step1 {res.hist_step1}, step2 {res.hist_step2}")
     if not all(p.shape == (8, 2) and bool(torch.isfinite(p).all()) for p in preds):
         fail("scaled predict: outputs not finite (8, 2) tensors")
-    if min(out["spectral_launches"], out["stencil_launches"], out["transfer_launches"]) <= 0:
+    if min(out["spectral_launches"], out["stencil_launches"], out["prec_launches"]) <= 0:
         fail(f"the scaled trainer launched spectral {out['spectral_launches']}, stencil "
-             f"{out['stencil_launches']}, transfer {out['transfer_launches']} times; all must "
+             f"{out['stencil_launches']}, fused transfer {out['prec_launches']} times; all must "
              "be > 0")
     if not (cg["cg_update.launches"] > 0 and cg["pcg.steps.plain"] == 0
             and cg["cg_update.launches"] == 2 * cg["pcg.steps.fused"]):
         fail(f"the scaled datagen and trainer: CG counters {cg} (want 2 CG update launches a "
              "fused loop step, no plain step)")
+    if not (cg["prec.calls.plain"] == 0 and out["transfer_launches"] == 0
+            and 2 * cg["prec.calls.fused"] == out["prec_launches"]):
+        fail(f"the scaled datagen and trainer: preconditioner calls {cg} for "
+             f"{out['prec_launches']} fused and {out['transfer_launches']} plain transfer "
+             "launches (want every call fused, two fused launches each, no plain one)")
     print(f"[11 scaled trainer] ok: 160x80, n=256 x ne_sam 4, 2 + 2 epochs at batch 64; step1 "
           f"losses {res.hist_step1.tolist()}, step2 losses {res.hist_step2.tolist()}; kernel "
           f"launches stencil {out['stencil_launches']}, spectral {out['spectral_launches']}, "
-          f"transfer {out['transfer_launches']}, CG update {cg['cg_update.launches']} "
-          f"({cg['pcg.steps.fused']} fused loop steps, {cg['pcg.steps.plain']} plain)", flush=True)
+          f"transfer {out['prec_launches']} fused, {out['transfer_launches']} plain, CG update "
+          f"{cg['cg_update.launches']} "
+          f"({cg['pcg.steps.fused']} fused loop steps, {cg['pcg.steps.plain']} plain); "
+          f"preconditioner calls {cg['prec.calls.fused']} fused, {cg['prec.calls.plain']} plain",
+          flush=True)
 
     # 12. times (records, not a claim), each beside the card's name and limit
     steps = math.ceil(ds.n_sam / tcfg.batch_size) * (tcfg.num_epoch1 - 1)
@@ -2716,27 +2759,34 @@ TRANSFER_SHAPES = [TRANSFER_MAIN, (512, (20, 40), 4, 2), (256, (2, 2, 8), 4, 3),
 TRANSFER_TIMED = [TRANSFER_MAIN, (256, (2, 2, 8), 4, 3), (256, (4, 4, 16), 4, 3)]
 
 
+def hat_macs(cells, ratio):
+    """A transfer's multiply-adds a dof channel of a sample: one per nonzero
+    hat weight of each axis's pass, times the other axes' nodes at that pass
+    (fine before it, coarse after it in the prolongation's order; the
+    restriction is its transpose)."""
+    nf = [c * ratio + 1 for c in cells]
+    nc = [c + 1 for c in cells]
+    return sum((nc[k] + 2 * (nf[k] - nc[k])) * int(np.prod(nf[:k])) * int(np.prod(nc[k + 1:]))
+               for k in range(len(cells)))
+
+
 def hat_least_time(B, cells, ratio, ndof, dtype):
     """least_time of one transfer (either direction): each sample's fine and
-    coarse vectors once; a multiply-add per nonzero hat weight of each
-    axis's pass, times the other axes' nodes at that pass (fine before it,
-    coarse after it in the prolongation's order; the restriction is its
-    transpose)."""
+    coarse vectors once, and :func:`hat_macs`."""
     nf = [c * ratio + 1 for c in cells]
     nc = [c + 1 for c in cells]
     itemsize = torch.finfo(dtype).bits // 8
     nbytes = B * ndof * (int(np.prod(nf)) + int(np.prod(nc))) * itemsize
-    macs = sum((nc[k] + 2 * (nf[k] - nc[k])) * int(np.prod(nf[:k])) * int(np.prod(nc[k + 1:]))
-               for k in range(len(cells)))
-    return least_time(nbytes, 2 * B * ndof * macs, dtype)
+    return least_time(nbytes, 2 * B * ndof * hat_macs(cells, ratio), dtype)
 
 
 def transfer_path(dev, card):
     """Phase 48: the hat-transfer kernels (csrc/hat_transfer.cu) against
     their plain version (REL_TOL of max|want|, whether bitwise), two calls
     bitwise equal, adjointness in float64, the launch count of one 160x80
-    fh batch (two a preconditioner call, one coarse apply each), and device
-    time (CUDA graphs) beside the bound and the plain version's."""
+    fh batch (none of this pair: each preconditioner call launches the fused
+    pair twice and the coarse apply once), and device time (CUDA graphs)
+    beside the bound and the plain version's."""
     import dataclasses
 
     from vbicm_tpu_torch.config import ProblemConfig
@@ -2823,12 +2873,16 @@ def transfer_path(dev, card):
         fh(thetas)
     torch.cuda.synchronize()
     out["launches_fh"] = launched("hat_transfer", before)
-    prec_calls = launched("spectral_apply", before)  # one coarse apply a preconditioner call
-    if not (prec_calls > 0 and out["launches_fh"] == 2 * prec_calls):
-        fail(f"one 160x80 fh batch: {out['launches_fh']} transfer launches for {prec_calls} "
-             "preconditioner calls (want two each)")
-    print(f"[48 hat transfer] ok: one 160x80 fh batch (B = 256): {out['launches_fh']} transfer "
-          f"launches, 2 x {prec_calls} preconditioner calls", flush=True)
+    fused_fh = launched("hat_transfer_prec", before)
+    prec_calls = trace.counters().get("prec.calls.fused", 0) - before.get("prec.calls.fused", 0)
+    if not (prec_calls > 0 and out["launches_fh"] == 0 and fused_fh == 2 * prec_calls
+            and launched("spectral_apply", before) == prec_calls):
+        fail(f"one 160x80 fh batch: {out['launches_fh']} plain and {fused_fh} fused transfer "
+             f"launches for {prec_calls} fused preconditioner calls (want none of the plain "
+             "pair, two of the fused pair and one coarse apply a call)")
+    print(f"[48 hat transfer] ok: one 160x80 fh batch (B = 256): {out['launches_fh']} plain "
+          f"transfer launches, {fused_fh} fused = 2 x {prec_calls} fused preconditioner calls",
+          flush=True)
 
     # device time beside the bound and the plain version's
     for B, cells, ratio, ndof in TRANSFER_TIMED:
@@ -2850,6 +2904,241 @@ def transfer_path(dev, card):
     print(f"[48 hat transfer] {time.perf_counter() - t0:.2f} s", flush=True)
     return out
 
+
+
+# The two-level preconditioner's fused pair (phase 50): (B, fine cells, ratio)
+# of the paths that run it. The benchmark cells' 160x80 over 40x20, a ratio-2
+# 80x40 over 40x20, the 3-D trainer's 32x8x8 over 16x4x4 and the 64x16x16 over
+# 16x4x4 at ratio 4 (bench.py's box, B = 64), each with a coarse support set
+PREC_MAIN = (256, (160, 80), 4)
+PREC_SHAPES = [PREC_MAIN, (256, (80, 40), 2), (256, (32, 8, 8), 2), (64, (64, 16, 16), 4)]
+# a fused call's kernels: the coefficients' cast, the restriction, #1's two,
+# the prolongation
+PREC_LAUNCHES = 5
+# the preconditioner's calls each way and the launches of each transfer pair
+PREC_COUNTERS = ("prec.calls.fused", "prec.calls.plain", "hat_transfer_prec.launches",
+                 "hat_transfer.launches")
+
+
+def prec_case(dev, fine_cells, ratio):
+    """(fine model, coarse model, transfer pair, coarse cells slowest first,
+    dofs a node) of a two-level solver: Cook's membrane for 2 axes, the hex8
+    box for 3, as solver.make_two_level_solver{,_box3d} build them."""
+    from vbicm_tpu_torch.config import SectionCard
+    from vbicm_tpu_torch.mesh import beam_hex8_mesh, cooks_membrane_mesh
+    from vbicm_tpu_torch.model import build_fem_model
+    from vbicm_tpu_torch.ops.multigrid import make_grid_transfer_nd
+
+    coarse_cells = tuple(c // ratio for c in fine_cells)
+    if len(fine_cells) == 2:
+        fine = build_fem_model(cooks_membrane_mesh(*fine_cells), device=dev, dense=False)
+        coarse = build_fem_model(cooks_membrane_mesh(*coarse_cells), device=dev, dense=True)
+        ndof = 2
+    else:
+        sec = SectionCard(stype=4)
+        fine = build_fem_model(beam_hex8_mesh(*fine_cells), sec, device=dev, dense=False)
+        coarse = build_fem_model(beam_hex8_mesh(*coarse_cells), sec, device=dev, dense=True)
+        ndof = 3
+    cells = coarse_cells[::-1]  # slowest first
+    return fine, coarse, make_grid_transfer_nd(cells, ratio, ndof, device=dev), cells, ndof
+
+
+def prec_least_time(B, cells, ratio, ndof, nfree, dtype, way):
+    """least_time of one kernel of the pair: the restriction reads r and the
+    mask and writes the compact coarse vectors; the prolongation reads
+    those, r, D^-1 and the mask and writes z; each reads the int32 slot
+    table. Operations: the transfer's multiply-adds (:func:`hat_macs`) and a
+    product a fine value (r m) in the restriction, five in the prolongation
+    (r m, omega D^-1, their product, z_f m and the sum)."""
+    itemsize = torch.finfo(dtype).bits // 8
+    n_f = ndof * int(np.prod([c * ratio + 1 for c in cells]))
+    n_c = ndof * int(np.prod([c + 1 for c in cells]))
+    flops = 2 * B * ndof * hat_macs(cells, ratio)
+    if way == "restrict":
+        nbytes, flops = itemsize * (B * n_f + n_f + B * nfree) + 4 * n_c, flops + B * n_f
+    else:
+        nbytes, flops = itemsize * (B * nfree + 3 * B * n_f + n_f) + 4 * n_c, flops + 5 * B * n_f
+    return least_time(nbytes, flops, dtype)
+
+
+def device_kernels(fn):
+    """The names of the device kernels (and copies) that one call of ``fn``
+    ran, from torch.profiler's CUDA activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [ev.name() for ev in prof.profiler.kineto_results.events()
+            if ev.device_type() == torch.autograd.DeviceType.CUDA
+            and not ev.is_user_annotation()]
+
+
+def host_us(fn, reps=50):
+    """Host µs a call of ``fn``: the time to enqueue ``reps`` calls after a
+    warm-up, the card synchronised before (not inside) the timed run."""
+    for n in (5, reps):
+        torch.cuda.synchronize()
+        tic = time.perf_counter()
+        for _ in range(n):
+            fn()
+        toc = time.perf_counter()
+    torch.cuda.synchronize()
+    return (toc - tic) / reps * 1e6
+
+
+def prec_path(dev, card):
+    """Phase 50: the two-level preconditioner's fused pair (csrc/hat_transfer.cu,
+    ``hat_restrict_prec_kernel``, ``hat_prolong_prec_kernel``): the fused call
+    torch.equal to the composition it replaces (the plain form, which the
+    preconditioner takes on the transfers handed as a plain tuple: PyTorch
+    ops around the plain transfer kernels) at PREC_SHAPES in float32 and
+    float64, with the solvers' coefficients and with the mean field's
+    constant ones; its kernels (PREC_LAUNCHES); the counters around one
+    160x80 fh batch (every call fused, two launches of the fused pair each,
+    none of the plain pair); device
+    time of each kernel beside its bound and its plain version's, and of
+    the whole call fused and composed (CUDA graphs; the host's µs a call
+    beside), the 3-D fused call no slower than the composed one."""
+    import dataclasses
+
+    from vbicm_tpu_torch.config import ProblemConfig
+    from vbicm_tpu_torch.ops.element import lame_from_Ev
+    from vbicm_tpu_torch.ops.hat_transfer_kernel import free_slots, launch_plan
+    from vbicm_tpu_torch.ops.multigrid import make_two_level_preconditioner
+    from vbicm_tpu_torch.solver import (
+        _make_free_embed,
+        make_coarse_spectral_apply,
+        make_fh_fun,
+        make_two_level_solver,
+    )
+    from vbicm_tpu_torch.utils import trace
+
+    t0 = time.perf_counter()
+    f32, f64 = torch.float32, torch.float64
+    out = {"ms": {}, "call_ms": {}, "host_us": {}}
+    coeffs0 = torch.tensor(lame_from_Ev(20.0, 0.3), dtype=f64, device=dev)  # the mean field's
+    for B, fine_cells, ratio in PREC_SHAPES:
+        fine, coarse, transfer, cells, ndof = prec_case(dev, fine_cells, ratio)
+        coarse_apply = make_coarse_spectral_apply(coarse)
+        nfree = int(coarse.nfree)
+        embed = _make_free_embed(coarse)
+        prec = make_two_level_preconditioner(coarse_apply, fine.free_mask, transfer, omega=0.6)
+        composed = make_two_level_preconditioner(coarse_apply, fine.free_mask, tuple(transfer),
+                                                 omega=0.6)
+        tag = f"{B}x{'x'.join(map(str, fine_cells))} r{ratio}"
+        for dtype in (f32, f64):
+            g = torch.Generator(device=dev).manual_seed(B + ratio + sum(fine_cells))
+            mask = fine.free_mask.to(dtype)
+            r = torch.randn((B, fine.ndof), generator=g, device=dev, dtype=dtype)
+            dinv = 0.01 + 0.09 * torch.rand((B, fine.ndof), generator=g, device=dev, dtype=dtype)
+            dinv = torch.where(mask > 0, dinv, torch.ones_like(dinv))
+            coeffs = torch.stack([8.0 + 8.0 * torch.rand(B, generator=g, device=dev, dtype=f64),
+                                  6.0 + 3.0 * torch.rand(B, generator=g, device=dev, dtype=f64)],
+                                 -1)
+            mean = coeffs0.to(dtype).expand(B, 2)
+            before = trace.counters()
+            got = [prec(coeffs, dinv, r), prec(coeffs, dinv, r), prec(mean, dinv, r)]
+            torch.cuda.synchronize()
+            after = trace.counters()
+            want = [composed(coeffs, dinv, r), composed(mean, dinv, r)]
+            torch.cuda.synchronize()
+            moved = {k: after.get(k, 0) - before.get(k, 0) for k in PREC_COUNTERS}
+            if moved != {"prec.calls.fused": 3, "prec.calls.plain": 0,
+                         "hat_transfer_prec.launches": 6, "hat_transfer.launches": 0}:
+                fail(f"prec {tag} {dtype}: counters {moved} over 3 calls (want 3 fused calls, "
+                     "6 launches of the fused pair, none of the plain pair)")
+            same = (torch.equal(got[0], want[0]), torch.equal(got[0], got[1]),
+                    torch.equal(got[2], want[1]))
+            if not all(same):
+                err = max(rel_err(got[0], want[0]), rel_err(got[2], want[1]))
+                fail(f"prec {tag} {dtype}: fused vs composed (coeffs, two calls, mean field) "
+                     f"torch.equal {same}; max rel err {err:.3e}")
+        print(f"[50 prec] ok: {tag} ({nfree} free of {coarse.ndof} coarse dofs), f32 and f64: "
+              "the fused call torch.equal to the composition, with the solvers' and the mean "
+              "field's coefficients; two calls bitwise equal; every call fused, 2 launches of "
+              "the fused pair each, none of the plain pair", flush=True)
+
+        # times, float32 (and float64 at the cells' shape)
+        for dtype in ((f32, f64) if (B, fine_cells, ratio) == PREC_MAIN else (f32,)):
+            g = torch.Generator(device=dev).manual_seed(1)
+            mask = fine.free_mask.to(dtype)
+            r = torch.randn((B, fine.ndof), generator=g, device=dev, dtype=dtype)
+            dinv = torch.where(mask > 0, 0.05, 1.0).to(dtype).expand(B, -1).contiguous()
+            coeffs = coeffs0.expand(B, 2).contiguous()
+            slots = free_slots(coarse.free_dof, coarse.ndof)
+            rc = transfer.restrict_free(r, mask, slots, nfree)
+            plan = launch_plan(B, cells, ratio, ndof, r.element_size())
+            # each kernel's plain version: the composition's ops it replaces
+            for way, kernel, plain in (
+                    ("restrict", lambda: transfer.restrict_free(r, mask, slots, nfree),
+                     lambda: transfer.restrict(r * mask)[:, coarse.free_dof]),
+                    ("prolong", lambda: transfer.prolong_smooth(rc, slots, r, dinv, mask, 0.6),
+                     lambda: 0.6 * dinv * (r * mask) + transfer.prolong(embed(rc)) * mask)):
+                t = kernel_times(kernel, plain,
+                                 prec_least_time(B, cells, ratio, ndof, nfree, dtype, way))
+                out["ms"][B, fine_cells, dtype, way] = t
+                print(f"[50 times] hat {way} prec ({tag}, {ndof} dofs) {dtype}, {plan}: device "
+                      f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms; eager kernel "
+                      f"{t['ms_eager']:.4f} ms; bound {t['bound_ms']:.4f} ms ({t['bound_by']}), "
+                      f"{100 * t['share_of_bound']:.1f} % of it, on {card}", flush=True)
+            fused_call = lambda: prec(coeffs, dinv, r)  # noqa: E731
+            composed_call = lambda: composed(coeffs, dinv, r)  # noqa: E731
+            dev_ms = [graph_ms(composed_call), graph_ms(fused_call), graph_ms(fused_call),
+                      graph_ms(composed_call)]
+            call = {"fused_ms": min(dev_ms[1:3]), "composed_ms": min(dev_ms[0], dev_ms[3]),
+                    "fused_ms_eager": time_ms(fused_call, warmup=5, reps=50),
+                    "composed_ms_eager": time_ms(composed_call, warmup=5, reps=50),
+                    "fused_host_us": host_us(fused_call),
+                    "composed_host_us": host_us(composed_call)}
+            out["call_ms"][B, fine_cells, dtype] = call
+            print(f"[50 times] prec call ({tag}) {dtype}: device fused {call['fused_ms']:.4f} ms, "
+                  f"composed {call['composed_ms']:.4f} ms; eager fused "
+                  f"{call['fused_ms_eager']:.4f} ms, composed {call['composed_ms_eager']:.4f} ms;"
+                  f" host fused {call['fused_host_us']:.1f} us, composed "
+                  f"{call['composed_host_us']:.1f} us a call, on {card}", flush=True)
+            if len(fine_cells) == 3 and call["fused_ms"] > call["composed_ms"]:
+                fail(f"prec {tag} {dtype}: the fused call ({call['fused_ms']:.4f} ms) is slower "
+                     f"than the composed one ({call['composed_ms']:.4f} ms)")
+            if (B, fine_cells, ratio) == PREC_MAIN and dtype == f32:
+                out["kernels_fused"] = device_kernels(fused_call)
+                out["kernels_composed"] = device_kernels(composed_call)
+                fc = torch.stack([coeffs0] * B)  # the solvers' float64 coefficients
+                out["kernels_fused_f64_coeffs"] = device_kernels(lambda: prec(fc, dinv, r))
+                print(f"[50 prec] {tag} f32: a fused call ran {len(out['kernels_fused'])} "
+                      f"kernels ({out['kernels_fused']}), with float64 coefficients "
+                      f"{len(out['kernels_fused_f64_coeffs'])}; the composed call "
+                      f"{len(out['kernels_composed'])} ({out['kernels_composed']})", flush=True)
+                if not (len(out["kernels_fused"]) == PREC_LAUNCHES
+                        == len(out["kernels_fused_f64_coeffs"])):
+                    fail(f"a fused prec call ran {len(out['kernels_fused'])} and "
+                         f"{len(out['kernels_fused_f64_coeffs'])} kernels (want "
+                         f"{PREC_LAUNCHES})")
+
+    # the counters of one fh batch on the benchmark cells' solver
+    fine, coarse, _, _, _ = prec_case(dev, (160, 80), 4)
+    solve = make_two_level_solver(fine, coarse, 40, 20, 4, cg_dtype=f32, refine_iters=1,
+                                  tol=3e-3, maxiter=400, use_stencil=True)
+    cfg = dataclasses.replace(ProblemConfig(), node_id=fine.nnodes, ele_id=40 * 160 + 12)
+    fh = make_fh_fun(fine, cfg, solve_free=solve)
+    thetas = torch.randn((256, 2), generator=torch.Generator().manual_seed(50),
+                         dtype=torch.float64).to(dev)
+    before = trace.counters()
+    with torch.no_grad():
+        fh(thetas)
+    torch.cuda.synchronize()
+    after = trace.counters()
+    moved = {k: after.get(k, 0) - before.get(k, 0) for k in PREC_COUNTERS}
+    if not (moved["prec.calls.fused"] > 0 and moved["prec.calls.plain"] == 0
+            and moved["hat_transfer.launches"] == 0
+            and moved["hat_transfer_prec.launches"] == 2 * moved["prec.calls.fused"]):
+        fail(f"one 160x80 fh batch: counters {moved} (want every preconditioner call fused, "
+             "two launches of the fused pair each, none of the plain pair)")
+    out["fh_counters"] = moved
+    print(f"[50 prec] ok: one 160x80 fh batch (B = 256): {moved}; "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    return out
 
 
 # CG's vector updates (phase 49), (B, n): the benchmark cells' 160x80 lanes

@@ -2,25 +2,46 @@
 CPU: the plain version is today's matrix-product form bit for bit, the
 wrapper refuses what the CUDA kernels do not take, and the kernels' launch
 plan and index arithmetic (``csrc/hat_transfer.cu``), replayed on the host,
-cover every output once and compute the plain version's sums. The kernels
-themselves run on the card in chip_smoke.py."""
+cover every output once and compute the plain version's sums. Then the
+two-level preconditioner around them (``ops/multigrid.py``): its plain path
+is the composition as it was before the fused pair, bit for bit, also with
+the grid transfers handed as a plain ``(prolong, restrict)`` tuple; the
+pair's wrappers refuse what its kernels do not take, CPU tensors too. The kernels themselves run on the card
+in chip_smoke.py."""
 import importlib.util
 import os
 import re
 
 import numpy as np
 import pytest
+import scipy.linalg
 import torch
 
+from vbicm_tpu_torch.config import SectionCard
+from vbicm_tpu_torch.mesh import beam_hex8_mesh, cooks_membrane_mesh
+from vbicm_tpu_torch.model import build_fem_model
+from vbicm_tpu_torch.ops.element import lame_from_Ev
 from vbicm_tpu_torch.ops.hat_transfer_kernel import (
     SMEM_BUDGET,
     SMEM_MAX,
+    free_slots,
     grid_nodes,
+    hat_prolong_prec,
+    hat_restrict_prec,
     hat_transfer,
     launch_plan,
     smem_bytes,
 )
-from vbicm_tpu_torch.ops.multigrid import hat_matrix, make_grid_transfer_nd
+from vbicm_tpu_torch.ops.multigrid import (
+    cooks_prolongation,
+    hat_matrix,
+    make_gather_transfer,
+    make_grid_transfer_nd,
+    make_two_level_preconditioner,
+)
+from vbicm_tpu_torch.ops.spectral_kernel import spectral_apply_batched
+from vbicm_tpu_torch.prob.randomfield import make_mean_field_preconditioner
+from vbicm_tpu_torch.solver import make_coarse_spectral_apply
 from vbicm_tpu_torch.utils import trace
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -271,15 +292,17 @@ def test_kernel_names_fall_in_no_benchmark_family():
 
     with open(SOURCE) as f:
         names = set(re.findall(r"__global__ void __launch_bounds__\(\w+\)\s+(\w+)\(", f.read()))
-    assert names == {"hat_restrict_kernel", "hat_prolong_kernel"}
+    assert names == {"hat_restrict_kernel", "hat_prolong_kernel", "hat_restrict_prec_kernel",
+                     "hat_prolong_prec_kernel"}
     spec = importlib.util.spec_from_file_location(
         "profile_scaled_torch", os.path.join(ROOT, "tools", "profile_scaled_torch.py"))
     tool = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(tool)
     for name in names:
         # as the profiler shows it: demangled, with the instance's arguments
+        prec = ", (anonymous namespace)::Prec<float>" if "_prec_" in name else ""
         shown = (f"void (anonymous namespace)::{name}<float, 2, 2>(float const*, float*, "
-                 "(anonymous namespace)::Grid)")
+                 f"(anonymous namespace)::Grid{prec})")
         assert family(shown) == "other"
         assert not any(k in shown for _, keys in FAMILIES for k in keys)
         assert tool.family(shown) == "transfer kernel"
@@ -297,3 +320,187 @@ def test_transfers_are_adjoint_in_float64(cells, ratio, ndof):
     rhs = (u * restrict(r)).sum(1)
     assert torch.allclose(lhs, rhs, rtol=0, atol=1e-12 * float(u.norm() * r.norm()))
 
+
+
+# ---------------------------------------------------------------------------
+# the two-level preconditioner around the transfers
+# ---------------------------------------------------------------------------
+
+
+def _frozen_composition(coarse_model, fine_free_mask, transfer, omega):
+    """The additive preconditioner as ``ops/multigrid.py`` and
+    ``solver.make_coarse_spectral_apply`` composed it before the fused pair:
+    r mask, the smoothing, the restriction, the free-dof gather, the coarse
+    spectral solve, the embed, the prolongation, its mask and the sum."""
+    g, V = scipy.linalg.eigh(coarse_model.k_lam_ff.numpy(), coarse_model.k_mu_ff.numpy())
+    free = coarse_model.free_dof
+    inv = torch.argsort(torch.cat([free, coarse_model.supp_dof]))
+    nsupp = int(coarse_model.supp_dof.shape[0])
+    prolong, restrict = transfer
+
+    def coarse_apply(coeffs, r_full):
+        V_ = torch.as_tensor(V, dtype=r_full.dtype).contiguous()
+        g_ = torch.as_tensor(g, dtype=r_full.dtype)
+        c = coeffs.to(r_full.dtype).contiguous()
+        x = spectral_apply_batched(V_, g_, c, r_full[:, free].contiguous())
+        return torch.cat([x, x.new_zeros((*x.shape[:-1], nsupp))], dim=-1)[..., inv]
+
+    def prec(coeffs, diag_inv, r):
+        mask = fine_free_mask.to(r.dtype)
+        r = r * mask
+        z_smooth = omega * diag_inv * r
+        return z_smooth + prolong(coarse_apply(coeffs, restrict(r))) * mask
+
+    return prec
+
+
+def _two_level_case(name):
+    """(fine, coarse, transfer, coeffs0): the 16x8 Cook's grid over 4x2 with
+    the hat transfers (2-D stencil path; as a plain tuple for
+    "stencil2d_tuple") or the gather transfers (element path), the 4x2x2
+    box over 2x1x1 (3-D), and the 2-D mean field (coeffs0 the mean field's
+    constant coefficients, else None)."""
+    if name == "box3d":
+        sec = SectionCard(stype=4)
+        fine = build_fem_model(beam_hex8_mesh(4, 2, 2), sec, device="cpu", dense=False)
+        coarse = build_fem_model(beam_hex8_mesh(2, 1, 1), sec, device="cpu", dense=True)
+        return fine, coarse, make_grid_transfer_nd((1, 1, 2), 2, 3), None
+    fine = build_fem_model(cooks_membrane_mesh(16, 8), device="cpu", dense=False)
+    coarse = build_fem_model(cooks_membrane_mesh(4, 2), device="cpu", dense=True)
+    if name == "gather":
+        return fine, coarse, make_gather_transfer(*cooks_prolongation(4, 2, 4)), None
+    if name == "stencil2d_tuple":
+        return fine, coarse, tuple(make_grid_transfer_nd((2, 4), 4, 2)), None
+    # the mean field's coefficients: E0 = 20, nu = 0.3 (prob/randomfield.py)
+    coeffs0 = torch.tensor(lame_from_Ev(20.0, 0.3), dtype=torch.float64) \
+        if name == "mean_field" else None
+    return fine, coarse, make_grid_transfer_nd((2, 4), 4, 2), coeffs0
+
+
+def _prec_inputs(fine, dtype, seed, B=3):
+    """coeffs (B, 2) in float64, as the solvers hand them; diag_inv and r
+    (B, n) in the CG's dtype, diag_inv 1 at the supports as the solver's."""
+    rng = np.random.default_rng(seed)
+    coeffs = torch.as_tensor(np.stack([rng.uniform(8.0, 16.0, B), rng.uniform(6.0, 9.0, B)], 1))
+    mask = fine.free_mask.to(dtype)
+    dinv = torch.as_tensor(rng.uniform(0.01, 0.1, (B, fine.ndof)), dtype=dtype)
+    dinv = torch.where(mask > 0, dinv, torch.ones_like(dinv))
+    r = torch.as_tensor(rng.normal(size=(B, fine.ndof)), dtype=dtype)
+    return coeffs, dinv, r
+
+
+CASES = ["stencil2d", "stencil2d_tuple", "box3d", "gather", "mean_field"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("case", CASES)
+def test_preconditioner_plain_path_is_the_frozen_composition(case, dtype):
+    """On CPU tensors every preconditioner takes its plain path, counted in
+    ``prec.calls.plain``, bitwise the composition as it was."""
+    fine, coarse, transfer, coeffs0 = _two_level_case(case)
+    want_prec = _frozen_composition(coarse, fine.free_mask, transfer, 0.6)
+    coeffs, dinv, r = _prec_inputs(fine, dtype, seed=len(case))
+    if coeffs0 is None:
+        prec = make_two_level_preconditioner(make_coarse_spectral_apply(coarse), fine.free_mask,
+                                             transfer, omega=0.6)
+    else:
+        prec = make_mean_field_preconditioner(coarse, 4, 2, 4, fine.free_mask, omega=0.6)
+        coeffs = coeffs0.to(dtype).expand(r.shape[0], 2)
+    before = trace.counters()
+    got = prec(coeffs, dinv, r)
+    after = trace.counters()
+    assert got.dtype == dtype
+    assert torch.equal(got, want_prec(coeffs, dinv, r))
+    assert after.get("prec.calls.plain", 0) - before.get("prec.calls.plain", 0) == 1
+    assert after.get("prec.calls.fused", 0) == before.get("prec.calls.fused", 0)
+
+
+@pytest.mark.parametrize("case", ["stencil2d", "box3d"])
+def test_free_slot_table_follows_the_coarse_models_free_dofs(case):
+    _, coarse, _, _ = _two_level_case(case)
+    slots = free_slots(make_coarse_spectral_apply(coarse).free_dof, coarse.ndof)
+    assert slots.dtype == torch.int32 and slots.shape == (coarse.ndof,)
+    assert torch.equal(slots[coarse.free_dof].long(), torch.arange(coarse.nfree))
+    assert bool((slots[coarse.supp_dof] == -1).all()) and coarse.supp_dof.numel() > 0
+
+
+def test_free_slot_table_of_any_order():
+    """The table follows the order it is given, not the dofs' order."""
+    free = torch.tensor([5, 0, 3, 2])
+    assert free_slots(free, 7).tolist() == [1, -1, 3, 2, -1, 0, -1]
+
+
+# a prolongation from the 8x4 grid's coarse grid at ratio 2 ((2, 4) cells,
+# 90 fine and 30 coarse values), 20 of the coarse dofs free
+_NF, _NC, _NFREE = 90, 30, 20
+
+
+def _prec_operands(**change):
+    """The pair's operands on the meta device (no data; the wrappers'
+    checks run, and a meta tensor is on no CUDA device), one changed."""
+    ops = {"r": _meta((3, _NF)), "mask": _meta(_NF), "diag_inv": _meta((3, _NF)),
+           "slots": torch.empty(_NC, dtype=torch.int32, device="meta"),
+           "z_free": _meta((3, _NFREE)), "nfree": _NFREE}
+    ops.update(change)
+    return ops
+
+
+def _call_restrict(ops):
+    return hat_restrict_prec(ops["r"], ops["mask"], ops["slots"], ops["nfree"], (2, 4), 2, 2)
+
+
+def _call_prolong(ops):
+    return hat_prolong_prec(ops["z_free"], ops["slots"], ops["r"], ops["diag_inv"], ops["mask"],
+                            0.6, (2, 4), 2, 2)
+
+
+_PREC_REFUSALS = [
+    (_call_restrict, {}, ValueError, "CUDA device"),
+    (_call_restrict, {"mask": torch.empty(_NF)}, ValueError, "CUDA device"),
+    (_call_restrict, {"mask": _meta(_NF, torch.float64)}, TypeError, "float32"),
+    (_call_restrict, {"mask": _meta(_NF - 2)}, ValueError, "expected"),
+    (_call_restrict, {"mask": _meta(2 * _NF)[::2]}, ValueError, "contiguous"),
+    (_call_restrict, {"mask": _meta(_NF + 1)[1:]}, ValueError, "aligned"),
+    (_call_restrict, {"r": _meta((3, _NF - 2))}, ValueError, "expected"),
+    (_call_restrict, {"slots": torch.empty(_NC, dtype=torch.int64, device="meta")}, TypeError,
+     "int32"),
+    (_call_restrict, {"slots": torch.empty(_NC + 2, dtype=torch.int32, device="meta")},
+     ValueError, "expected"),
+    (_call_restrict, {"slots": torch.empty(2 * _NC, dtype=torch.int32, device="meta")[::2]},
+     ValueError, "contiguous"),
+    (_call_restrict, {"nfree": _NC + 1}, ValueError, "nfree"),
+    (_call_restrict, {"r": torch.empty((3, _NF)), "mask": torch.empty(_NF),
+                      "slots": torch.empty(_NC, dtype=torch.int32)}, ValueError, "CUDA device"),
+    (_call_prolong, {}, ValueError, "CUDA device"),
+    (_call_prolong, {"z_free": torch.empty((3, _NFREE)), "r": torch.empty((3, _NF)),
+                     "diag_inv": torch.empty((3, _NF)), "mask": torch.empty(_NF),
+                     "slots": torch.empty(_NC, dtype=torch.int32)}, ValueError, "CUDA device"),
+    (_call_prolong, {"diag_inv": _meta((3, _NF), torch.float64)}, TypeError, "float32"),
+    (_call_prolong, {"diag_inv": _meta((3, _NF - 2))}, ValueError, "expected"),
+    (_call_prolong, {"diag_inv": _meta((1, _NF))}, ValueError, "expected"),
+    (_call_prolong, {"diag_inv": _meta((3, 2 * _NF))[:, ::2]}, ValueError, "contiguous"),
+    (_call_prolong, {"diag_inv": _meta(3 * _NF + 1)[1:].view(3, _NF)}, ValueError, "aligned"),
+    (_call_prolong, {"diag_inv": torch.empty((3, _NF))}, ValueError, "CUDA device"),
+    (_call_prolong, {"mask": _meta(_NF, torch.float16)}, TypeError, "float32"),
+    (_call_prolong, {"mask": _meta((1, _NF))}, ValueError, "expected"),
+    (_call_prolong, {"z_free": _meta(_NFREE)}, ValueError, "expected"),
+    (_call_prolong, {"z_free": _meta((3, _NFREE), torch.float64)}, TypeError, "float32"),
+    (_call_prolong, {"z_free": _meta((3, 2 * _NFREE))[:, ::2]}, ValueError, "contiguous"),
+    (_call_prolong, {"z_free": _meta((3, _NC + 1))}, ValueError, "nfree"),
+    (_call_prolong, {"slots": torch.empty(_NC, dtype=torch.float32, device="meta")}, TypeError,
+     "int32"),
+    (_call_prolong, {"slots": torch.empty(_NC - 1, dtype=torch.int32, device="meta")},
+     ValueError, "expected"),
+]
+
+
+@pytest.mark.parametrize("call,change,error,match", _PREC_REFUSALS,
+                         ids=[f"{c.__name__[6:]}-{'-'.join(ch) or 'device'}-{m.split()[0]}-{i}"
+                              for i, (c, ch, _, m) in enumerate(_PREC_REFUSALS)])
+def test_prec_pair_refuses_what_its_kernels_do_not_take(call, change, error, match):
+    before = trace.counters()
+    with pytest.raises(error, match=match):
+        call(_prec_operands(**change))
+    after = trace.counters()
+    for name in ("hat_transfer_prec.launches", "hat_transfer.launches"):
+        assert after.get(name, 0) == before.get(name, 0)

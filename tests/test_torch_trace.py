@@ -287,12 +287,27 @@ def test_host_reads_of_datagen_and_epochs_are_counted(problem):
     generate_data_fem(torch.Generator().manual_seed(2), fh, n_sam=10, ne_sam=2, device="cpu",
                       chunk=4)
     assert _delta(before, "host.") == {"host.sync.datagen_readback": 2 * math.ceil(10 / 4)}
-    assert set(_delta(before)) == {"host.sync.datagen_readback", "pcg.steps.plain"}
+    assert set(_delta(before)) == {"host.sync.datagen_readback", "pcg.steps.plain",
+                                   "prec.calls.plain"}
     y, e = _inputs(problem)
     before = trace.counters()
     trainer.train_step1(y.numpy(), e.numpy(), torch.Generator().manual_seed(0), num_epochs=2)
     assert _delta(before, "host.") == {}
-    assert set(_delta(before)) == {"pcg.steps.plain"}
+    assert set(_delta(before)) == {"pcg.steps.plain", "prec.calls.plain"}
+
+
+def test_prec_counters_count_each_call_by_its_form(problem, tool, monkeypatch):
+    """``prec.calls.plain`` counts every preconditioner call on CPU tensors,
+    one a ``prec`` span: a loop step's and each CG run's first;
+    ``prec.calls.fused`` (CUDA tensors on the structured-grid transfers)
+    none."""
+    _, solver, _ = problem
+    before = trace.counters()
+    with tool.lane_iterations(solver) as runs, _span_calls(monkeypatch) as calls:
+        _fh_grad(problem)
+    steps = sum(pcg_loop(it, solver.maxiter)[0] for it in runs)
+    assert _delta(before, "prec.") == {"prec.calls.plain": steps + len(runs)}
+    assert calls["prec"] == calls["prec.prolong"] == steps + len(runs)
 
 
 # A synthetic trace. Host events: (name, thread, start, end, correlation id,

@@ -62,7 +62,8 @@ FAMILIES = (  # (family, substrings of the kernel name), first match wins
     ("stencil3d kernel", ("stencil3d_affine_kernel",)),
     ("stencil kernel", ("stencil_affine_kernel",)),
     ("spectral kernel", ("spectral_apply_kernel", "spectral_combine_kernel")),
-    ("transfer kernel", ("hat_prolong_kernel", "hat_restrict_kernel")),
+    ("transfer kernel", ("hat_prolong_kernel", "hat_restrict_kernel", "hat_prolong_prec_kernel",
+                         "hat_restrict_prec_kernel")),
     ("CG update kernel", ("cg_alpha_step_kernel", "cg_beta_step_kernel")),
     ("cuBLAS GEMM", ("gemm", "gemv", "cutlass", "xmma", "Kernel2")),
     ("reduction", ("reduce",)),

@@ -39,6 +39,7 @@ NVCC_FLAGS = (
 
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
+_DBL = ctypes.c_double
 _INTS = ctypes.POINTER(ctypes.c_int)
 CUDA_ERROR_INVALID_VALUE = 1  # cudaErrorInvalidValue
 _SIGNATURES = {
@@ -79,6 +80,13 @@ _SIGNATURES = {
     # (coarse, fine, B, naxes, ndof, r, cz, cy, cx, lines, stream) -> cudaError_t
     "vbicm_hat_prolong_f32": [_PTR] * 2 + [_INT] * 8 + [_PTR],
     "vbicm_hat_prolong_f64": [_PTR] * 2 + [_INT] * 8 + [_PTR],
+    # (fine, mask, slots, coarse, nfree, B, naxes, ndof, r, cz, cy, cx, tz, ty, stream)
+    "vbicm_hat_restrict_prec_f32": [_PTR] * 4 + [_INT] * 10 + [_PTR],
+    "vbicm_hat_restrict_prec_f64": [_PTR] * 4 + [_INT] * 10 + [_PTR],
+    # (coarse, slots, res, dinv, mask, omega, z, nfree, B, naxes, ndof, r, cz, cy, cx, lines,
+    #  stream)
+    "vbicm_hat_prolong_prec_f32": [_PTR] * 5 + [_DBL, _PTR] + [_INT] * 9 + [_PTR],
+    "vbicm_hat_prolong_prec_f64": [_PTR] * 5 + [_DBL, _PTR] + [_INT] * 9 + [_PTR],
     # (state, kp or z, vec, stream) -> cudaError_t
     "vbicm_cg_alpha_step_f32": [_PTR, _PTR, _INT, _PTR],
     "vbicm_cg_alpha_step_f64": [_PTR, _PTR, _INT, _PTR],

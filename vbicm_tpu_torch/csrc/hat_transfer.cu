@@ -48,6 +48,31 @@
 //     vector is a few KB) into shared memory, then along x, a thread a fine
 //     node, written out in order.
 //   ops/hat_transfer_kernel.py::launch_plan picks tz, ty and lines.
+//
+// The preconditioner's pair (hat_restrict_prec_kernel, hat_prolong_prec_kernel)
+// is the same two bodies with the rest of the additive two-level cycle
+// z = omega D^-1 (r m) + P K_c^-1 R (r m) m (ops/multigrid.py, m the fine free
+// mask) folded in, so that a preconditioner call is these two launches around
+// the coarse solve. They absorb what the composition ran as separate passes
+// over the (B, n) fine vectors: r m and z_f m, omega D^-1, its product with
+// r m and the sum, and on the coarse side the gather of the free dofs before
+// the coarse solve and the embed (zeros at the supports) after it.
+//   restriction: stages r m (plain loads of r and m in place of the
+//     copies: a pass over the staged values after the copies took 13-18 %
+//     longer on the 3-D grids on an H100), then the passes as above; the last
+//     pass writes each coarse dof to its slot among the free ones (`slots`,
+//     -1 at a support), a (B, nfree) vector in the coarse solve's order.
+//   prolongation: reads that compact vector through the same slots (0 at a
+//     support), and its epilogue reads r, D^-1 and m at each fine dof and
+//     writes z = (omega D^-1) (r m) + z_f m.
+// Bound: bytes. The pair reads r twice and D^-1 once and writes z once: at
+// (256, 160x80) in float32 107 MB, 0.032 ms at 3.35 TB/s (the mask, the slot
+// table and the compact coarse vectors are under 2 MB).
+// Every product and the sum of the epilogue are rounded alone (__fmul_rn,
+// __fadd_rn), in the composition's order: an FMA contraction would round
+// once where PyTorch's separate kernels round twice, and the pair has to
+// give the composition's bits. omega arrives as PyTorch multiplies by it:
+// rounded to the working type.
 
 #include <cuda_runtime.h>
 
@@ -73,6 +98,8 @@ __device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, 
 __device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
 __device__ __forceinline__ float fma_rn(float a, float b, float c) { return __fmaf_rn(a, b, c); }
 __device__ __forceinline__ double fma_rn(double a, double b, double c) { return __fma_rn(a, b, c); }
+__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
 
 // n / d by one multiply, exact for n * d < 2^32: m = ceil(2^32 / d), set on
 // the host (launch checks the bound).
@@ -195,15 +222,61 @@ struct Grid {
   Div r_d, ny_d, nx_d, cx_d, ty_d, nl_d;  // nl: the restriction's window lines, at most
 };
 
+// What the preconditioner's pair adds to a launch (unused by the plain pair).
+template <typename T>
+struct Prec {
+  const T* mask;     // (n_f,) the fine free mask, 0 or 1
+  const int* slots;  // (n_c,) a coarse dof's index among the free ones, -1 at a support
+  int nfree;         // free coarse dofs: the compact vectors' row
+  const T* r;        // prolongation: (B, n_f) the residual and
+  const T* dinv;     //   the Jacobi inverse diagonal
+  T omega;
+};
+
+// Coarse node `node`'s D values of one sample: from the dense vector at
+// `in`, or, for the preconditioner's pair, from the compact one through the
+// slots (0 at a support).
+template <typename T, int D, bool PREC>
+__device__ __forceinline__ Node<T, D> ld_coarse(const T* in, size_t node, const Prec<T>& p) {
+  if constexpr (PREC) {
+    Node<T, D> n;
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      const int k = __ldg(p.slots + node * D + d);
+      n.v[d] = k >= 0 ? __ldg(in + k) : T(0);
+    }
+    return n;
+  } else {
+    return ldg_node<T, D>(in + node * D);
+  }
+}
+
+// The same for a store: the preconditioner's pair keeps the free dofs only.
+template <typename T, int D, bool PREC>
+__device__ __forceinline__ void st_coarse(T* out, size_t node, const Node<T, D>& v,
+                                          const Prec<T>& p) {
+  if constexpr (PREC) {
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      const int k = __ldg(p.slots + node * D + d);
+      if (k >= 0) out[k] = v.v[d];
+    }
+  } else {
+    st_node<T, D>(out + node * D, v);
+  }
+}
+
 // The restriction's window of fine lines a block, at most (whole tiles).
 __host__ __device__ __forceinline__ int window(int fine, int r, int tiles) {
   const int w = r * tiles + r - 1;
   return fine < w ? fine : w;
 }
 
-template <typename T, int NAX, int D>
-__global__ void __launch_bounds__(kThreads)
-    hat_restrict_kernel(const T* __restrict__ fine, T* __restrict__ coarse, Grid g) {
+// The restriction of one block; PREC: the preconditioner's (coarse: the
+// compact free-dof vectors).
+template <typename T, int NAX, int D, bool PREC>
+__device__ __forceinline__ void restrict_body(const T* __restrict__ fine, T* __restrict__ coarse,
+                                              const Grid& g, const Prec<T>& p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int r = g.r;
   const int tid = threadIdx.x;
@@ -226,17 +299,33 @@ __global__ void __launch_bounds__(kThreads)
   T* txy = tx + static_cast<size_t>(nlmax) * LC;    // three axes: (wz, ty, LC)
   T* wtab = txy + (NAX == 3 ? static_cast<size_t>(window(g.nz, r, g.tz)) * g.ty * LC : 0);
   const size_t nfine = static_cast<size_t>(g.nz) * g.ny * g.nx * D;
-  const size_t ncoarse = static_cast<size_t>(g.cz) * g.cy * g.cx * D;
+  const size_t ncoarse = PREC ? static_cast<size_t>(p.nfree)
+                              : static_cast<size_t>(g.cz) * g.cy * g.cx * D;
 
   // 1. the window's fine lines, a warp a line
   {
-    const T* src0 = fine + s * nfine;
     const int warp = tid >> 5, lane = tid & 31;
     for (int l = warp; l < nl; l += kThreads / 32) {
       const int iz = l / wy, iy = l - iz * wy;
-      const T* src = src0 + (static_cast<size_t>(fz0 + iz) * g.ny + fy0 + iy) * g.nx * D;
+      const size_t at = (static_cast<size_t>(fz0 + iz) * g.ny + fy0 + iy) * g.nx * D;
+      const T* src = fine + s * nfine + at;
       T* dst = stage + static_cast<size_t>(l) * LF;
-      if constexpr (D == 2) {
+      if constexpr (PREC) {
+        // r m as it is staged, the composition's one multiply: plain loads
+        // of r and the mask, independent from one step to the next
+        const T* m = p.mask + at;
+        if constexpr (D == 2) {
+#pragma unroll 4
+          for (int n = lane; n < g.nx; n += 32) {
+            const Node<T, D> a = ldg_node<T, D>(src + 2 * n), b = ldg_node<T, D>(m + 2 * n);
+            st_node<T, D>(dst + 2 * n,
+                          Node<T, D>{{mul_rn(a.v[0], b.v[0]), mul_rn(a.v[1], b.v[1])}});
+          }
+        } else {
+#pragma unroll 4
+          for (int k = lane; k < D * g.nx; k += 32) dst[k] = mul_rn(__ldg(src + k), __ldg(m + k));
+        }
+      } else if constexpr (D == 2) {
         for (int n = lane; n < g.nx; n += 32) cp_async<2 * sizeof(T)>(dst + 2 * n, src + 2 * n);
       } else {
         for (int k = lane; k < D * g.nx; k += 32) cp_async<sizeof(T)>(dst + k, src + k);
@@ -274,7 +363,7 @@ __global__ void __launch_bounds__(kThreads)
     const Node<T, D> v = restrict_chain<T, D>(
         tx + static_cast<size_t>(iz * wy + y0 - fy0) * LC + D * xc, LC, y0, y1, yc, r, wtab);
     if constexpr (NAX == 2) {
-      st_node<T, D>(coarse + s * ncoarse + (static_cast<size_t>(yc) * g.cx + xc) * D, v);
+      st_coarse<T, D, PREC>(coarse + s * ncoarse, static_cast<size_t>(yc) * g.cx + xc, v, p);
     } else {
       st_node<T, D>(txy + static_cast<size_t>(iz * g.ty + yl) * LC + D * xc, v);
     }
@@ -295,15 +384,17 @@ __global__ void __launch_bounds__(kThreads)
       const Node<T, D> v = restrict_chain<T, D>(
           txy + static_cast<size_t>((z0 - fz0) * g.ty + yl) * LC + D * xc, g.ty * LC, z0, z1, zc,
           r, wtab);
-      st_node<T, D>(
-          coarse + s * ncoarse + ((static_cast<size_t>(zc) * g.cy + yc) * g.cx + xc) * D, v);
+      st_coarse<T, D, PREC>(coarse + s * ncoarse,
+                            (static_cast<size_t>(zc) * g.cy + yc) * g.cx + xc, v, p);
     }
   }
 }
 
-template <typename T, int NAX, int D>
-__global__ void __launch_bounds__(kThreads)
-    hat_prolong_kernel(const T* __restrict__ coarse, T* __restrict__ fine, Grid g) {
+// The prolongation of one block; PREC: the preconditioner's (coarse: the
+// compact free-dof vectors; fine: z = (omega D^-1) (r m) + (P z_c) m).
+template <typename T, int NAX, int D, bool PREC>
+__device__ __forceinline__ void prolong_body(const T* __restrict__ coarse, T* __restrict__ fine,
+                                             const Grid& g, const Prec<T>& p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int r = g.r;
   const int tid = threadIdx.x;
@@ -316,7 +407,8 @@ __global__ void __launch_bounds__(kThreads)
   T* t = reinterpret_cast<T*>(smem_raw);  // (lines, LC)
   T* wtab = t + static_cast<size_t>(g.lines) * LC;
   const size_t nfine = static_cast<size_t>(g.nz) * g.ny * g.nx * D;
-  const size_t ncoarse = static_cast<size_t>(g.cz) * g.cy * g.cx * D;
+  const size_t ncoarse = PREC ? static_cast<size_t>(p.nfree)
+                              : static_cast<size_t>(g.cz) * g.cy * g.cx * D;
   if (tid <= r) wtab[tid] = static_cast<T>(1.0 - static_cast<double>(tid) / r);
   __syncthreads();
 
@@ -332,13 +424,14 @@ __global__ void __launch_bounds__(kThreads)
     // the coarse node (zc, ycc, xc), along z first on three axes
     auto slow = [&](int ycc) {
       if constexpr (NAX == 2) {
-        return ldg_node<T, D>(src + (static_cast<size_t>(ycc) * g.cx + xc) * D);
+        return ld_coarse<T, D, PREC>(src, static_cast<size_t>(ycc) * g.cx + xc, p);
       } else {
         const int zc = static_cast<int>(quo(z, g.r_d)), rz = static_cast<int>(z) - zc * r;
-        const T* p = src + ((static_cast<size_t>(zc) * g.cy + ycc) * g.cx + xc) * D;
-        Node<T, D> a = tap_first<T, D>(wtab[rz], ldg_node<T, D>(p));
+        const size_t node = (static_cast<size_t>(zc) * g.cy + ycc) * g.cx + xc;
+        Node<T, D> a = tap_first<T, D>(wtab[rz], ld_coarse<T, D, PREC>(src, node, p));
         if (rz)
-          tap<T, D>(a, wtab[r - rz], ldg_node<T, D>(p + static_cast<size_t>(g.cy) * g.cx * D));
+          tap<T, D>(a, wtab[r - rz],
+                    ld_coarse<T, D, PREC>(src, node + static_cast<size_t>(g.cy) * g.cx, p));
         return a;
       }
     };
@@ -349,7 +442,8 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
 
   // 2. along x: a fine node a thread, written out in order
-  T* dst = fine + s * nfine + static_cast<size_t>(L0) * g.nx * D;
+  const size_t at0 = static_cast<size_t>(L0) * g.nx * D;  // the block's first value in a sample
+  T* dst = fine + s * nfine + at0;
   for (unsigned it = tid; it < static_cast<unsigned>(nlb * g.nx); it += kThreads) {
     const unsigned l = quo(it, g.nx_d);
     const int x = static_cast<int>(it - l * g.nx);
@@ -357,8 +451,45 @@ __global__ void __launch_bounds__(kThreads)
     const T* row = t + static_cast<size_t>(l) * LC + D * xc;
     Node<T, D> a = tap_first<T, D>(wtab[rx], ld_node<T, D>(row));
     if (rx) tap<T, D>(a, wtab[r - rx], ld_node<T, D>(row + D));
+    if constexpr (PREC) {
+      // z = (omega D^-1) (r m) + z_f m, each product and the sum rounded
+      const size_t at = at0 + static_cast<size_t>(it) * D;
+      const Node<T, D> rv = ldg_node<T, D>(p.r + s * nfine + at);
+      const Node<T, D> dv = ldg_node<T, D>(p.dinv + s * nfine + at);
+      const Node<T, D> mv = ldg_node<T, D>(p.mask + at);
+#pragma unroll
+      for (int d = 0; d < D; ++d)
+        a.v[d] = add_rn(mul_rn(mul_rn(p.omega, dv.v[d]), mul_rn(rv.v[d], mv.v[d])),
+                        mul_rn(a.v[d], mv.v[d]));
+    }
     st_node<T, D>(dst + static_cast<size_t>(it) * D, a);
   }
+}
+
+template <typename T, int NAX, int D>
+__global__ void __launch_bounds__(kThreads)
+    hat_restrict_kernel(const T* __restrict__ fine, T* __restrict__ coarse, Grid g) {
+  restrict_body<T, NAX, D, false>(fine, coarse, g, Prec<T>{});
+}
+
+template <typename T, int NAX, int D>
+__global__ void __launch_bounds__(kThreads)
+    hat_prolong_kernel(const T* __restrict__ coarse, T* __restrict__ fine, Grid g) {
+  prolong_body<T, NAX, D, false>(coarse, fine, g, Prec<T>{});
+}
+
+template <typename T, int NAX, int D>
+__global__ void __launch_bounds__(kThreads)
+    hat_restrict_prec_kernel(const T* __restrict__ fine, T* __restrict__ coarse, Grid g,
+                             Prec<T> p) {
+  restrict_body<T, NAX, D, true>(fine, coarse, g, p);
+}
+
+template <typename T, int NAX, int D>
+__global__ void __launch_bounds__(kThreads)
+    hat_prolong_prec_kernel(const T* __restrict__ coarse, T* __restrict__ fine, Grid g,
+                            Prec<T> p) {
+  prolong_body<T, NAX, D, true>(coarse, fine, g, p);
 }
 
 // Shared-memory values of a restriction block and of a prolongation block
@@ -433,9 +564,9 @@ int prepare(K kernel, long long blocks, size_t smem, size_t* raised) {
   return static_cast<int>(err);
 }
 
-template <typename T, int NAX, int D>
+template <typename T, int NAX, int D, bool PREC>
 int restrict_launch(const void* fine, void* coarse, int B, int r, int cz, int cy, int cx, int tz,
-                    int ty, void* stream) {
+                    int ty, const Prec<T>& p, void* stream) {
   Grid g;
   if (B <= 0 || !make_grid(NAX, r, cz, cy, cx, tz, ty, 1, &g))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -443,17 +574,26 @@ int restrict_launch(const void* fine, void* coarse, int B, int r, int cz, int cy
                            ((g.cy + ty - 1) / ty);
   const size_t smem = restrict_words<NAX, D>(g) * sizeof(T);
   static size_t raised[kMaxDevices] = {};
-  auto* kernel = hat_restrict_kernel<T, NAX, D>;
-  const int err = prepare(kernel, blocks, smem, raised);
-  if (err != 0) return err;
-  kernel<<<static_cast<unsigned>(blocks), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(fine), static_cast<T*>(coarse), g);
+  const auto in = static_cast<const T*>(fine);
+  const auto out = static_cast<T*>(coarse);
+  const auto st = static_cast<cudaStream_t>(stream);
+  if constexpr (PREC) {
+    auto* kernel = hat_restrict_prec_kernel<T, NAX, D>;
+    const int err = prepare(kernel, blocks, smem, raised);
+    if (err != 0) return err;
+    kernel<<<static_cast<unsigned>(blocks), kThreads, smem, st>>>(in, out, g, p);
+  } else {
+    auto* kernel = hat_restrict_kernel<T, NAX, D>;
+    const int err = prepare(kernel, blocks, smem, raised);
+    if (err != 0) return err;
+    kernel<<<static_cast<unsigned>(blocks), kThreads, smem, st>>>(in, out, g);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int NAX, int D>
+template <typename T, int NAX, int D, bool PREC>
 int prolong_launch(const void* coarse, void* fine, int B, int r, int cz, int cy, int cx,
-                   int lines, void* stream) {
+                   int lines, const Prec<T>& p, void* stream) {
   Grid g;
   if (B <= 0 || !make_grid(NAX, r, cz, cy, cx, 1, 1, lines, &g))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -461,40 +601,58 @@ int prolong_launch(const void* coarse, void* fine, int B, int r, int cz, int cy,
       static_cast<long long>(B) * ((static_cast<long long>(g.nz) * g.ny + lines - 1) / lines);
   const size_t smem = prolong_words<D>(g) * sizeof(T);
   static size_t raised[kMaxDevices] = {};
-  auto* kernel = hat_prolong_kernel<T, NAX, D>;
-  const int err = prepare(kernel, blocks, smem, raised);
-  if (err != 0) return err;
-  kernel<<<static_cast<unsigned>(blocks), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(coarse), static_cast<T*>(fine), g);
+  const auto in = static_cast<const T*>(coarse);
+  const auto out = static_cast<T*>(fine);
+  const auto st = static_cast<cudaStream_t>(stream);
+  if constexpr (PREC) {
+    auto* kernel = hat_prolong_prec_kernel<T, NAX, D>;
+    const int err = prepare(kernel, blocks, smem, raised);
+    if (err != 0) return err;
+    kernel<<<static_cast<unsigned>(blocks), kThreads, smem, st>>>(in, out, g, p);
+  } else {
+    auto* kernel = hat_prolong_kernel<T, NAX, D>;
+    const int err = prepare(kernel, blocks, smem, raised);
+    if (err != 0) return err;
+    kernel<<<static_cast<unsigned>(blocks), kThreads, smem, st>>>(in, out, g);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename T, bool PREC>
 int restrict_dispatch(const void* fine, void* coarse, int B, int naxes, int ndof, int r, int cz,
-                      int cy, int cx, int tz, int ty, void* stream) {
+                      int cy, int cx, int tz, int ty, const Prec<T>& p, void* stream) {
   if (naxes == 2 && ndof == 2)
-    return restrict_launch<T, 2, 2>(fine, coarse, B, r, cz, cy, cx, tz, ty, stream);
+    return restrict_launch<T, 2, 2, PREC>(fine, coarse, B, r, cz, cy, cx, tz, ty, p, stream);
   if (naxes == 2 && ndof == 3)
-    return restrict_launch<T, 2, 3>(fine, coarse, B, r, cz, cy, cx, tz, ty, stream);
+    return restrict_launch<T, 2, 3, PREC>(fine, coarse, B, r, cz, cy, cx, tz, ty, p, stream);
   if (naxes == 3 && ndof == 2)
-    return restrict_launch<T, 3, 2>(fine, coarse, B, r, cz, cy, cx, tz, ty, stream);
+    return restrict_launch<T, 3, 2, PREC>(fine, coarse, B, r, cz, cy, cx, tz, ty, p, stream);
   if (naxes == 3 && ndof == 3)
-    return restrict_launch<T, 3, 3>(fine, coarse, B, r, cz, cy, cx, tz, ty, stream);
+    return restrict_launch<T, 3, 3, PREC>(fine, coarse, B, r, cz, cy, cx, tz, ty, p, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <typename T>
+template <typename T, bool PREC>
 int prolong_dispatch(const void* coarse, void* fine, int B, int naxes, int ndof, int r, int cz,
-                     int cy, int cx, int lines, void* stream) {
+                     int cy, int cx, int lines, const Prec<T>& p, void* stream) {
   if (naxes == 2 && ndof == 2)
-    return prolong_launch<T, 2, 2>(coarse, fine, B, r, cz, cy, cx, lines, stream);
+    return prolong_launch<T, 2, 2, PREC>(coarse, fine, B, r, cz, cy, cx, lines, p, stream);
   if (naxes == 2 && ndof == 3)
-    return prolong_launch<T, 2, 3>(coarse, fine, B, r, cz, cy, cx, lines, stream);
+    return prolong_launch<T, 2, 3, PREC>(coarse, fine, B, r, cz, cy, cx, lines, p, stream);
   if (naxes == 3 && ndof == 2)
-    return prolong_launch<T, 3, 2>(coarse, fine, B, r, cz, cy, cx, lines, stream);
+    return prolong_launch<T, 3, 2, PREC>(coarse, fine, B, r, cz, cy, cx, lines, p, stream);
   if (naxes == 3 && ndof == 3)
-    return prolong_launch<T, 3, 3>(coarse, fine, B, r, cz, cy, cx, lines, stream);
+    return prolong_launch<T, 3, 3, PREC>(coarse, fine, B, r, cz, cy, cx, lines, p, stream);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The preconditioner's pair: a coarse vector of nfree free dofs a sample.
+template <typename T>
+Prec<T> make_prec(const void* mask, const void* slots, int nfree, const void* res,
+                  const void* dinv, double omega) {
+  return Prec<T>{static_cast<const T*>(mask), static_cast<const int*>(slots), nfree,
+                 static_cast<const T*>(res), static_cast<const T*>(dinv),
+                 static_cast<T>(omega)};
 }
 
 }  // namespace
@@ -510,21 +668,68 @@ int prolong_dispatch(const void* coarse, void* fine, int B, int naxes, int ndof,
 extern "C" int vbicm_hat_restrict_f32(const void* fine, void* coarse, int B, int naxes, int ndof,
                                       int r, int cz, int cy, int cx, int tz, int ty,
                                       void* stream) {
-  return restrict_dispatch<float>(fine, coarse, B, naxes, ndof, r, cz, cy, cx, tz, ty, stream);
+  return restrict_dispatch<float, false>(fine, coarse, B, naxes, ndof, r, cz, cy, cx, tz, ty, {},
+                                         stream);
 }
 
 extern "C" int vbicm_hat_restrict_f64(const void* fine, void* coarse, int B, int naxes, int ndof,
                                       int r, int cz, int cy, int cx, int tz, int ty,
                                       void* stream) {
-  return restrict_dispatch<double>(fine, coarse, B, naxes, ndof, r, cz, cy, cx, tz, ty, stream);
+  return restrict_dispatch<double, false>(fine, coarse, B, naxes, ndof, r, cz, cy, cx, tz, ty, {},
+                                          stream);
 }
 
 extern "C" int vbicm_hat_prolong_f32(const void* coarse, void* fine, int B, int naxes, int ndof,
                                      int r, int cz, int cy, int cx, int lines, void* stream) {
-  return prolong_dispatch<float>(coarse, fine, B, naxes, ndof, r, cz, cy, cx, lines, stream);
+  return prolong_dispatch<float, false>(coarse, fine, B, naxes, ndof, r, cz, cy, cx, lines, {},
+                                        stream);
 }
 
 extern "C" int vbicm_hat_prolong_f64(const void* coarse, void* fine, int B, int naxes, int ndof,
                                      int r, int cz, int cy, int cx, int lines, void* stream) {
-  return prolong_dispatch<double>(coarse, fine, B, naxes, ndof, r, cz, cy, cx, lines, stream);
+  return prolong_dispatch<double, false>(coarse, fine, B, naxes, ndof, r, cz, cy, cx, lines, {},
+                                         stream);
+}
+
+// The preconditioner's pair. mask (ndof * prod(c * r + 1)) is the fine free
+// mask in the working type; slots (ndof * prod(c + 1)) int32 gives each
+// coarse dof's index among the nfree free ones or -1; the coarse vectors are
+// (B, nfree). The restriction writes R (fine mask) there; the prolongation
+// reads them and writes z = (omega D^-1) (res mask) + (P coarse) mask, res
+// and dinv (B, ndof * prod(c * r + 1)) like z, each aligned to two values
+// for ndof 2.
+extern "C" int vbicm_hat_restrict_prec_f32(const void* fine, const void* mask, const void* slots,
+                                           void* coarse, int nfree, int B, int naxes, int ndof,
+                                           int r, int cz, int cy, int cx, int tz, int ty,
+                                           void* stream) {
+  return restrict_dispatch<float, true>(fine, coarse, B, naxes, ndof, r, cz, cy, cx, tz, ty,
+                                        make_prec<float>(mask, slots, nfree, nullptr, nullptr, 0),
+                                        stream);
+}
+
+extern "C" int vbicm_hat_restrict_prec_f64(const void* fine, const void* mask, const void* slots,
+                                           void* coarse, int nfree, int B, int naxes, int ndof,
+                                           int r, int cz, int cy, int cx, int tz, int ty,
+                                           void* stream) {
+  return restrict_dispatch<double, true>(
+      fine, coarse, B, naxes, ndof, r, cz, cy, cx, tz, ty,
+      make_prec<double>(mask, slots, nfree, nullptr, nullptr, 0), stream);
+}
+
+extern "C" int vbicm_hat_prolong_prec_f32(const void* coarse, const void* slots, const void* res,
+                                          const void* dinv, const void* mask, double omega,
+                                          void* z, int nfree, int B, int naxes, int ndof, int r,
+                                          int cz, int cy, int cx, int lines, void* stream) {
+  return prolong_dispatch<float, true>(coarse, z, B, naxes, ndof, r, cz, cy, cx, lines,
+                                       make_prec<float>(mask, slots, nfree, res, dinv, omega),
+                                       stream);
+}
+
+extern "C" int vbicm_hat_prolong_prec_f64(const void* coarse, const void* slots, const void* res,
+                                          const void* dinv, const void* mask, double omega,
+                                          void* z, int nfree, int B, int naxes, int ndof, int r,
+                                          int cz, int cy, int cx, int lines, void* stream) {
+  return prolong_dispatch<double, true>(coarse, z, B, naxes, ndof, r, cz, cy, cx, lines,
+                                        make_prec<double>(mask, slots, nfree, res, dinv, omega),
+                                        stream);
 }

@@ -14,6 +14,15 @@ two (prolongation) or 2 ratio - 1 (restriction) nonzero taps, in the plain
 version's order of axes and taps, with the weights computed from the
 indices. On CPU tensors :func:`hat_transfer` runs the plain version; on CUDA
 tensors it launches a kernel or raises.
+
+The two-level preconditioner's pair, :func:`hat_restrict_prec` and
+:func:`hat_prolong_prec` (``hat_restrict_prec_kernel``,
+``hat_prolong_prec_kernel``), are the same transfers with the rest of the
+additive cycle folded in (``ops.multigrid.make_two_level_preconditioner``):
+the fine free mask and the coarse free dofs on the restriction, the embed,
+the mask and the ``omega D^-1 r`` smoothing on the prolongation, in the
+composition's arithmetic, bit for bit. They take CUDA tensors only: their
+plain version is that composition, the preconditioner's plain form.
 """
 from __future__ import annotations
 
@@ -166,6 +175,43 @@ def _sizes(cells_coarse: tuple, ratio: int, ndof_node: int):
     return ndof_node * math.prod(nf), ndof_node * math.prod(nc)
 
 
+def free_slots(free_dof, n_coarse: int):
+    """(n_coarse,) int32 on ``free_dof``'s device: each coarse dof's index in
+    ``free_dof`` (the coarse solve's order of its unknowns), -1 at a
+    support; the table of the preconditioner's pair."""
+    free = torch.as_tensor(free_dof).cpu().long()
+    slots = torch.full((int(n_coarse),), -1, dtype=torch.int32)
+    slots[free] = torch.arange(free.numel(), dtype=torch.int32)
+    return slots.to(torch.as_tensor(free_dof).device)
+
+
+def _checked_sizes(who: str, cells_coarse: tuple, ratio: int, ndof_node: int):
+    sizes = _sizes(cells_coarse, ratio, ndof_node)
+    if sizes is None:
+        raise ValueError(f"{who}: cells {cells_coarse}, ratio {ratio}, {ndof_node} dofs a node; "
+                         "the kernels take 2 or 3 axes, 2 or 3 dofs a node and a ratio >= 2")
+    return sizes
+
+
+def _check_shape(who: str, name: str, t, shape):
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{who}: {name} {tuple(t.shape)}; expected {tuple(shape)}")
+
+
+def _check_slots(who: str, slots, n_c: int, nfree: int):
+    if slots.dtype != torch.int32:
+        raise TypeError(f"{who}: slots {slots.dtype}; expected torch.int32 (free_slots)")
+    _check_shape(who, "slots", slots, (n_c,))
+    if not 0 <= nfree <= n_c:
+        raise ValueError(f"{who}: nfree {nfree} outside [0, {n_c}]")
+
+
+def _grid_args(cells_coarse: tuple, ratio: int, ndof_node: int):
+    """(naxes, ndof, r, cz, cy, cx) of a C entry point (cz = 0 in 2-D)."""
+    czyx = (0, *cells_coarse) if len(cells_coarse) == 2 else cells_coarse
+    return (len(cells_coarse), ndof_node, ratio, *czyx)
+
+
 def hat_transfer(x, mats, cells_coarse, ratio: int, ndof_node: int, *, adjoint: bool,
                  plan=None):
     """The prolongation (``adjoint=False``: x coarse (B, ndof_node *
@@ -184,11 +230,7 @@ def hat_transfer(x, mats, cells_coarse, ratio: int, ndof_node: int, *, adjoint: 
     if x.device.type == "cpu":
         return hat_transfer_reference(x, mats, cells_coarse, ratio, adjoint=adjoint)
     cells_coarse = tuple(cells_coarse)
-    sizes = _sizes(cells_coarse, ratio, ndof_node)
-    if sizes is None:
-        raise ValueError(f"hat_transfer: cells {cells_coarse}, ratio {ratio}, {ndof_node} dofs "
-                         "a node; the kernels take 2 or 3 axes, 2 or 3 dofs a node and a "
-                         "ratio >= 2")
+    sizes = _checked_sizes("hat_transfer", cells_coarse, ratio, ndof_node)
     n_in, n_out = sizes if adjoint else sizes[::-1]
     if x.ndim != 2 or x.shape[1] != n_in:
         raise ValueError(f"hat_transfer: x {tuple(x.shape)}; expected (B, {n_in})")
@@ -201,14 +243,91 @@ def hat_transfer(x, mats, cells_coarse, ratio: int, ndof_node: int, *, adjoint: 
     if B > 0:
         if plan is None:
             plan = launch_plan(B, cells_coarse, ratio, ndof_node, x.element_size())
-        cz, cy, cx = (0, *cells_coarse) if len(cells_coarse) == 2 else cells_coarse
         if adjoint:
             name, tail = "hat_restrict", (plan.tz, plan.ty)
         else:
             name, tail = "hat_prolong", (plan.lines,)
         _build.launch(name, dtype, device,
-                      (x.data_ptr(), out.data_ptr(), B, len(cells_coarse), ndof_node, ratio, cz,
-                       cy, cx, *tail),
+                      (x.data_ptr(), out.data_ptr(), B,
+                       *_grid_args(cells_coarse, ratio, ndof_node), *tail),
                       lambda: f"(B={B}, cells {cells_coarse}, ratio {ratio}, {ndof_node} dofs a "
                               f"node, {plan}, {dtype})", "hat_transfer")
     return out
+
+
+def hat_restrict_prec(r, mask, slots, nfree: int, cells_coarse, ratio: int, ndof_node: int, *,
+                      plan=None):
+    """The preconditioner's restriction: R (r mask) at the coarse free dofs,
+    (B, nfree) in the order of ``slots`` (:func:`free_slots`: (n_c,) int32,
+    each coarse dof's index among the ``nfree`` free ones or -1; the kernel
+    trusts it). r: fine (B, n_f); mask: the fine free mask (n_f,) in r's
+    dtype.
+
+    One launch of ``hat_restrict_prec_kernel`` with :func:`launch_plan`'s
+    tiles, on CUDA operands as :func:`hat_transfer` takes them (r and mask
+    aligned to two values for 2 dofs a node), or raise; CPU tensors raise
+    too (the plain version is ``ops.multigrid.make_two_level_preconditioner``'s
+    plain form). Counted in ``hat_transfer_prec.launches``."""
+    who = "hat_restrict_prec"
+    cells_coarse = tuple(cells_coarse)
+    n_f, n_c = _checked_sizes(who, cells_coarse, ratio, ndof_node)
+    if r.ndim != 2:
+        raise ValueError(f"{who}: r {tuple(r.shape)}; expected (B, {n_f})")
+    B = r.shape[0]
+    _check_shape(who, "r", r, (B, n_f))
+    _check_shape(who, "mask", mask, (n_f,))
+    _check_slots(who, slots, n_c, nfree)
+    align = 2 * r.element_size() if ndof_node == 2 else 0
+    device = _build.check_operands(who, ("r", "mask", "slots"), (r, mask, slots), floats=2,
+                                   align=(align, align))
+    out = torch.empty((B, nfree), dtype=r.dtype, device=device)
+    if B > 0:
+        if plan is None:
+            plan = launch_plan(B, cells_coarse, ratio, ndof_node, r.element_size())
+        _build.launch("hat_restrict_prec", r.dtype, device,
+                      (r.data_ptr(), mask.data_ptr(), slots.data_ptr(), out.data_ptr(), nfree, B,
+                       *_grid_args(cells_coarse, ratio, ndof_node), plan.tz, plan.ty),
+                      lambda: f"(B={B}, cells {cells_coarse}, ratio {ratio}, {ndof_node} dofs a "
+                              f"node, {nfree} free coarse dofs, {plan}, {r.dtype})",
+                      "hat_transfer_prec")
+    return out
+
+
+def hat_prolong_prec(z_free, slots, r, diag_inv, mask, omega: float, cells_coarse, ratio: int,
+                     ndof_node: int, *, plan=None):
+    """The preconditioner's prolongation: z = omega diag_inv (r mask) +
+    P(z_c) mask, z_c the compact coarse vectors ``z_free`` (B, nfree)
+    embedded with zeros at the supports through ``slots`` (as in
+    :func:`hat_restrict_prec`). r and diag_inv: fine (B, n_f); mask (n_f,);
+    all one dtype; omega multiplies as PyTorch multiplies a tensor by a
+    Python float (rounded to the dtype).
+
+    One launch of ``hat_prolong_prec_kernel`` on CUDA operands (r, diag_inv
+    and mask aligned to two values for 2 dofs a node), or raise; CPU
+    tensors raise too. Counted in ``hat_transfer_prec.launches``."""
+    who = "hat_prolong_prec"
+    cells_coarse = tuple(cells_coarse)
+    n_f, n_c = _checked_sizes(who, cells_coarse, ratio, ndof_node)
+    if z_free.ndim != 2:
+        raise ValueError(f"{who}: z_free {tuple(z_free.shape)}; expected (B, nfree)")
+    B, nfree = z_free.shape
+    _check_shape(who, "r", r, (B, n_f))
+    _check_shape(who, "diag_inv", diag_inv, (B, n_f))
+    _check_shape(who, "mask", mask, (n_f,))
+    _check_slots(who, slots, n_c, nfree)
+    align = 2 * r.element_size() if ndof_node == 2 else 0
+    device = _build.check_operands(who, ("z_free", "r", "diag_inv", "mask", "slots"),
+                                   (z_free, r, diag_inv, mask, slots), floats=4,
+                                   align=(0, align, align, align))
+    z = torch.empty((B, n_f), dtype=r.dtype, device=device)
+    if B > 0:
+        if plan is None:
+            plan = launch_plan(B, cells_coarse, ratio, ndof_node, r.element_size())
+        _build.launch("hat_prolong_prec", r.dtype, device,
+                      (z_free.data_ptr(), slots.data_ptr(), r.data_ptr(), diag_inv.data_ptr(),
+                       mask.data_ptr(), float(omega), z.data_ptr(), nfree, B,
+                       *_grid_args(cells_coarse, ratio, ndof_node), plan.lines),
+                      lambda: f"(B={B}, cells {cells_coarse}, ratio {ratio}, {ndof_node} dofs a "
+                              f"node, {nfree} free coarse dofs, {plan}, {r.dtype})",
+                      "hat_transfer_prec")
+    return z

@@ -13,13 +13,20 @@ Jacobi diagonal. Vectors are batched, (B, ndof), dofs interleaved per node.
 """
 from __future__ import annotations
 
+import math
 from typing import Callable
 
 import numpy as np
 import torch
 
-from ..utils.trace import span
-from .hat_transfer_kernel import grid_nodes, hat_transfer
+from ..utils.trace import count, span
+from .hat_transfer_kernel import (
+    free_slots,
+    grid_nodes,
+    hat_prolong_prec,
+    hat_restrict_prec,
+    hat_transfer,
+)
 
 
 def cooks_prolongation(nx_c: int, ny_c: int, ratio: int):
@@ -57,7 +64,48 @@ def hat_matrix(n_fine: int, n_coarse: int, r: int) -> np.ndarray:
     return np.maximum(0.0, 1.0 - np.abs(f - r * c) / r)
 
 
-def make_grid_transfer_nd(cells_coarse, ratio: int, ndof_node: int, *, device="cpu"):
+class GridTransfer:
+    """The structured-grid transfers of :func:`make_grid_transfer_nd`:
+    ``prolong`` and ``restrict`` (it unpacks as that pair), and the two-level
+    preconditioner's fused pair, ``restrict_free`` and ``prolong_smooth``
+    (``ops.hat_transfer_kernel.hat_restrict_prec``, ``hat_prolong_prec``:
+    the same transfers with the fine free mask, the Jacobi smoothing and the
+    coarse free dofs folded in; CUDA tensors only), which
+    :func:`make_two_level_preconditioner` takes on CUDA tensors."""
+
+    def __init__(self, cells_coarse, ratio: int, ndof_node: int, device):
+        self.cells_coarse = tuple(int(c) for c in cells_coarse)
+        self.ratio, self.ndof_node = ratio, ndof_node
+        nf, nc = grid_nodes(self.cells_coarse, ratio)
+        self.n_coarse = ndof_node * math.prod(nc)
+        self._mats = {}
+        for dt in (torch.float32, torch.float64):
+            ps = [torch.as_tensor(hat_matrix(f, c, ratio), dtype=dt, device=device)
+                  for f, c in zip(nf, nc)]
+            self._mats[dt] = (ps, [p.T.contiguous() for p in ps])
+
+    def __iter__(self):
+        return iter((self.prolong, self.restrict))
+
+    def prolong(self, u_c):
+        return hat_transfer(u_c, self._mats[u_c.dtype][0], self.cells_coarse, self.ratio,
+                            self.ndof_node, adjoint=False)
+
+    def restrict(self, r_f):
+        return hat_transfer(r_f, self._mats[r_f.dtype][1], self.cells_coarse, self.ratio,
+                            self.ndof_node, adjoint=True)
+
+    def restrict_free(self, r_f, mask, slots, nfree: int):
+        return hat_restrict_prec(r_f, mask, slots, nfree, self.cells_coarse, self.ratio,
+                                 self.ndof_node)
+
+    def prolong_smooth(self, z_free, slots, r_f, diag_inv, mask, omega: float):
+        return hat_prolong_prec(z_free, slots, r_f, diag_inv, mask, omega, self.cells_coarse,
+                                self.ratio, self.ndof_node)
+
+
+def make_grid_transfer_nd(cells_coarse, ratio: int, ndof_node: int, *,
+                          device="cpu") -> GridTransfer:
     """``(prolong, restrict)`` on batched flat dof vectors of a structured
     grid: the JAX package's N-dimensional tensor-product transfers.
 
@@ -78,24 +126,9 @@ def make_grid_transfer_nd(cells_coarse, ratio: int, ndof_node: int, *, device="c
     clipping is the hat matrices' clipped rows.
 
     prolong: (B, ndof_node * prod(c + 1)) -> (B, ndof_node * prod(c*r + 1));
-    restrict: the reverse."""
-    cells_coarse = tuple(int(c) for c in cells_coarse)
-    nf, nc = grid_nodes(cells_coarse, ratio)
-    mats = {}
-    for dt in (torch.float32, torch.float64):
-        ps = [torch.as_tensor(hat_matrix(f, c, ratio), dtype=dt, device=device)
-              for f, c in zip(nf, nc)]
-        mats[dt] = (ps, [p.T.contiguous() for p in ps])
-
-    def prolong(u_c):
-        return hat_transfer(u_c, mats[u_c.dtype][0], cells_coarse, ratio, ndof_node,
-                            adjoint=False)
-
-    def restrict(r_f):
-        return hat_transfer(r_f, mats[r_f.dtype][1], cells_coarse, ratio, ndof_node,
-                            adjoint=True)
-
-    return prolong, restrict
+    restrict: the reverse. The result is a :class:`GridTransfer`, which also
+    gives the two-level preconditioner's fused pair."""
+    return GridTransfer(cells_coarse, ratio, ndof_node, device)
 
 
 def make_gather_transfer(idx, w, *, device="cpu"):
@@ -163,14 +196,39 @@ def make_two_level_preconditioner(
     :func:`make_grid_transfer_nd` (the stencil paths) or the gather
     transfers of :func:`make_gather_transfer` (the element path); diag_inv
     is the fine Jacobi inverse diagonal for the current coefficients.
-    Spans (``utils.trace``): ``prec``, holding ``prec.restrict``,
-    ``prec.coarse`` and ``prec.prolong``."""
+
+    One arithmetic in two forms, chosen by what the call observes. CUDA
+    tensors on a :class:`GridTransfer` take the fused form: its
+    ``restrict_free`` (the restriction with the fine mask, onto the coarse
+    free dofs), ``coarse_apply.free`` (the coarse solve on those, as
+    ``solver.CoarseSpectralSolve`` gives it, with its ``free_dof``) and its
+    ``prolong_smooth`` (the prolongation with the mask and the smoothing),
+    one kernel launch each around the coarse solve
+    (``csrc/hat_transfer.cu``). Every other call (CPU tensors, the gather
+    transfers, a plain ``(prolong, restrict)`` tuple) takes the plain form,
+    the composition of PyTorch ops around the transfers. Both give the same
+    bits. Spans (``utils.trace``): ``prec``, holding ``prec.restrict``,
+    ``prec.coarse`` and ``prec.prolong``; counters ``prec.calls.fused`` and
+    ``prec.calls.plain``, the calls each way."""
     prolong, restrict = grid_transfer
     masks = {dt: fine_free_mask.to(dt) for dt in (torch.float32, torch.float64)}
+    fusable = isinstance(grid_transfer, GridTransfer)
+    if fusable:
+        slots = free_slots(coarse_apply.free_dof, grid_transfer.n_coarse)
+        nfree = int(coarse_apply.free_dof.numel())
 
     def prec(coeffs, diag_inv, r):
         with span("prec"):
             mask = masks[r.dtype]
+            if fusable and r.is_cuda:
+                count("prec.calls.fused")
+                with span("prec.restrict"):
+                    r_c = grid_transfer.restrict_free(r, mask, slots, nfree)
+                with span("prec.coarse"):
+                    z_c = coarse_apply.free(coeffs, r_c)
+                with span("prec.prolong"):
+                    return grid_transfer.prolong_smooth(z_c, slots, r, diag_inv, mask, omega)
+            count("prec.calls.plain")
             r = r * mask
             z_smooth = omega * diag_inv * r
             with span("prec.restrict"):

@@ -231,29 +231,40 @@ def make_fh_fun(
     return fh
 
 
-def make_coarse_spectral_apply(coarse_model: FemModel) -> Callable:
+class CoarseSpectralSolve:
     """Exact coarse-grid solve ``(coeffs (B, 2), r_full (B, ndof_c)) ->
     K_c(coeffs)^-1 r_full`` through the coarse pencil's eigenbasis and the
     spectral kernel, zeros on the coarse supports; the coarse part of the
     two-level preconditioner. It follows its input's dtype: float32 inside
     a float32 CG, float64 otherwise. The float32 apply keeps float32
-    accuracy (3xTF32 on the card), the JAX package's default precision."""
-    g, V = scipy.linalg.eigh(coarse_model.k_lam_ff.cpu().numpy(),
-                             coarse_model.k_mu_ff.cpu().numpy())
-    device = coarse_model.device
-    tables = {}
-    for dt in (torch.float32, torch.float64):
-        tables[dt] = (torch.as_tensor(V, dtype=dt, device=device).contiguous(),
-                      torch.as_tensor(g, dtype=dt, device=device))
-    free = coarse_model.free_dof
-    embed = _make_free_embed(coarse_model)
+    accuracy (3xTF32 on the card), the JAX package's default precision.
 
-    def apply(coeffs, r_full):
-        V_, g_ = tables[r_full.dtype]
-        c = coeffs.to(r_full.dtype).contiguous()
-        return embed(spectral_apply_batched(V_, g_, c, r_full[:, free].contiguous()))
+    ``free(coeffs, r_free (B, nfree)) -> (B, nfree)`` is the same solve on
+    the free coarse dofs alone, in the order of ``free_dof`` (the coarse
+    model's): the two-level preconditioner's fused form calls it with no
+    gather or embed."""
 
-    return apply
+    def __init__(self, coarse_model: FemModel):
+        g, V = scipy.linalg.eigh(coarse_model.k_lam_ff.cpu().numpy(),
+                                 coarse_model.k_mu_ff.cpu().numpy())
+        device = coarse_model.device
+        self._tables = {dt: (torch.as_tensor(V, dtype=dt, device=device).contiguous(),
+                             torch.as_tensor(g, dtype=dt, device=device))
+                        for dt in (torch.float32, torch.float64)}
+        self.free_dof = coarse_model.free_dof
+        self._embed = _make_free_embed(coarse_model)
+
+    def free(self, coeffs, r_free):
+        V_, g_ = self._tables[r_free.dtype]
+        return spectral_apply_batched(V_, g_, coeffs.to(r_free.dtype).contiguous(), r_free)
+
+    def __call__(self, coeffs, r_full):
+        return self._embed(self.free(coeffs, r_full[:, self.free_dof].contiguous()))
+
+
+def make_coarse_spectral_apply(coarse_model: FemModel) -> CoarseSpectralSolve:
+    """The coarse model's :class:`CoarseSpectralSolve`."""
+    return CoarseSpectralSolve(coarse_model)
 
 
 def make_two_level_solver(

@@ -14,12 +14,16 @@ Readers take the difference of two snapshots. The package's counters:
 ``host.sync.datagen_readback`` (``prob/datagen.py``, the chunks' reads),
 ``pcg.steps.fused`` and ``pcg.steps.plain`` (``ops/solve.py::pcg``, its loop
 steps through the CG update kernels or the plain version),
+``prec.calls.fused`` and ``prec.calls.plain`` (``ops/multigrid.py``, the
+two-level preconditioner's calls through its fused transfer kernels or the
+plain composition),
 ``cg_update.launches`` (``ops/cg_update_kernel.py``, the kernels' launches:
 two a fused loop step) and the other kernels' ``<entry>.launches``, counted
 by ``_build.launch``: ``spectral_apply`` (applies, one a call),
 ``stencil_affine`` and ``stencil_affine_rows`` (a forced ``rows_per_block``
 > 1), ``stencil3d_affine``, ``element_affine``, ``stencil_mxu``,
-``hat_transfer`` (both directions) and ``fma_probe``.
+``hat_transfer`` (both directions), ``hat_transfer_prec`` (the two-level
+preconditioner's fused pair, both directions) and ``fma_probe``.
 
 ``by_span``, ``span_idle`` and ``span_table`` give a recorded trace's
 kernels and idle gaps to the spans (``tools/profile_scaled_torch.py``).
