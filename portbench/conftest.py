@@ -12,7 +12,7 @@ import pytest
 
 from portbench.harness import manifest
 
-TINY_MESH = {"cooks_160x80": {"nx": 16, "ny": 8}}
+TINY_MESH = {"cooks_160x80": {"nx": 16, "ny": 8}, "box_32x8x8": {"nx": 4, "ny": 2, "nz": 2}}
 TINY_TRAFFIC = {"train": dict(batch=8, ne=2, data_chunk=32, trace_max_units=1,
                                window_checks=[2, 6]),
                 "datagen": dict(n_sam=64, chunk=16, trace_max_units=1)}
@@ -34,16 +34,32 @@ def chip():
 
 
 # a window long enough on the CPU for the checked steps of a tiny train cell
-TINY_SECONDS = {"train": 2.5, "datagen": 0.5}
+# (6 steps) with other tests sharing the cores, by the traffic's kind or the
+# cell's name (the box's plain 3-D stencil makes its tiny steps some three
+# times as long as Cook's)
+TINY_SECONDS = {"train": 5.0, "datagen": 0.5, "box32x8x8.train": 12.0}
 
 
-def tiny_config(config: dict) -> dict:
+def tiny_seconds(cell) -> float:
+    return TINY_SECONDS.get(cell.name, TINY_SECONDS[cell.traffic["kind"]])
+
+
+def tiny_config(config: dict, mesh: dict = None) -> dict:
+    """``config`` on its tiny mesh (or on ``mesh``), its probes moved to the
+    same places: Cook's top right corner and an element of the middle row;
+    the box's tip corner and its root element's top fiber."""
     out = copy.deepcopy(config)
-    mesh = TINY_MESH[config["name"]]
-    nx, ny = mesh["nx"], mesh["ny"]
-    out["mesh"] = mesh
-    out["probe"] = {"node_id": (nx + 1) * (ny + 1), "ele_id": (ny // 2) * nx + 3,
-                    "nipt_id": config["probe"]["nipt_id"]}
+    mesh = mesh or TINY_MESH[config["name"]]
+    out["mesh"].update(mesh)
+    m = out["mesh"]
+    nx, ny = m["nx"], m["ny"]
+    probe = out["probe"]
+    if "nz" in m:
+        nz = m["nz"]
+        probe.update(node_id=(nx + 1) * (ny + 1) * (nz + 1),
+                     ele_id=((nz - 1) * ny + ny // 2) * nx + 2)
+    else:
+        probe.update(node_id=(nx + 1) * (ny + 1), ele_id=(ny // 2) * nx + 3)
     out["n_data"] = 64
     return out
 

@@ -18,6 +18,8 @@ cores'.
 from __future__ import annotations
 
 import dataclasses
+import itertools
+import math
 from typing import Iterable, List, Sequence
 
 import numpy as np
@@ -71,16 +73,26 @@ def hat_nnz(cells: int, ratio: int) -> int:
 
 
 def hat_transfer(lanes, calls, cells_c: Sequence[int], ratio, itemsize, ndof_node=2) -> Work:
-    """One restriction or prolongation between the 2-D grids of
-    ``cells_c = (ny_c, nx_c)`` coarse cells and ``ratio`` times as many:
-    each lane's fine and coarse vectors once, the 1-D weights once a call;
-    a multiply-add per nonzero weight, applied axis by axis in the cheaper
-    order."""
-    (cy, cx) = cells_c
-    nfy, nfx, ncy, ncx = cy * ratio + 1, cx * ratio + 1, cy + 1, cx + 1
-    zy, zx = hat_nnz(cy, ratio), hat_nnz(cx, ratio)
-    nbytes = (lanes * ndof_node * (nfy * nfx + ncy * ncx) + calls * (zy + zx)) * itemsize
-    per = 2 * ndof_node * min(zx * nfy + zy * ncx, zy * nfx + zx * ncy)
+    """One restriction or prolongation between the 2-D or 3-D grids of
+    ``cells_c`` coarse cells (slowest axis first: (ny_c, nx_c) or (nz_c,
+    ny_c, nx_c)) and ``ratio`` times as many: each lane's fine and coarse
+    vectors once, the 1-D weights once a call; a multiply-add per nonzero
+    weight, applied axis by axis in the cheapest order (an axis's pass
+    costs its weights times the other axes' sizes, coarse where they have
+    had their pass)."""
+    fine = [c * ratio + 1 for c in cells_c]
+    coarse = [c + 1 for c in cells_c]
+    z = [hat_nnz(c, ratio) for c in cells_c]
+    nbytes = (lanes * ndof_node * (math.prod(fine) + math.prod(coarse)) + calls * sum(z)) * itemsize
+
+    def cost(order):
+        sizes, total = list(fine), 0
+        for a in order:
+            total += z[a] * math.prod(sizes[:a] + sizes[a + 1:])
+            sizes[a] = coarse[a]
+        return total
+
+    per = 2 * ndof_node * min(map(cost, itertools.permutations(range(len(cells_c)))))
     return Work("transfer", nbytes, lanes * per, _unit(itemsize, True))
 
 
@@ -93,16 +105,18 @@ def vector(lanes, n, reads, writes, flops_per, itemsize) -> Work:
 
 @dataclasses.dataclass(frozen=True)
 class TwoLevel:
-    """The shapes of a two-level PCG on a refined Cook's grid: fine
-    ``ndof`` (free dofs and supports), the fine operator's nonzeros by part,
-    coarse ``cells_c = (ny_c, nx_c)`` at ``ratio``, the coarse solve's
-    free-dof size."""
+    """The shapes of a two-level PCG on a refined structured grid (Cook's
+    2-D, the box 3-D): fine ``ndof`` (free dofs and supports), the fine
+    operator's nonzeros by part, coarse ``cells_c`` (slowest axis first:
+    (ny_c, nx_c) or (nz_c, ny_c, nx_c)) at ``ratio``, the coarse solve's
+    free-dof size, the dofs a node."""
 
     ndof: int
     nnz_parts: tuple
     cells_c: tuple
     ratio: int
     n_coarse: int
+    ndof_node: int = 2
 
     @property
     def nnz(self):
@@ -122,9 +136,9 @@ def cg_run(g: TwoLevel, iters: np.ndarray, itemsize: int) -> List[Work]:
     pl, pc = total + lanes, most + 1
     return [
         stencil(total, most, g.ndof, g.nnz, itemsize),
-        hat_transfer(pl, pc, g.cells_c, g.ratio, itemsize),
+        hat_transfer(pl, pc, g.cells_c, g.ratio, itemsize, g.ndof_node),
         spectral(pl, pc, g.n_coarse, itemsize, coords=False),
-        hat_transfer(pl, pc, g.cells_c, g.ratio, itemsize),
+        hat_transfer(pl, pc, g.cells_c, g.ratio, itemsize, g.ndof_node),
         vector(pl, g.ndof, 3, 1, 3, itemsize),
         vector(total, g.ndof, 11, 3, 12, itemsize),
     ]

@@ -69,6 +69,14 @@ def stencil_roofline(ctx):
     return _roofline(ctx, "stencil", "stencil kernel")
 
 
+def stencil3d_roofline(ctx):
+    """The box's fine-grid operator's share of its roofline: the least time
+    of the 3-D stencil work the profiled solves needed (its nonzero
+    coefficients, ``fem_box.build_problem``'s ``nnz_parts``) over the 3-D
+    stencil kernel's device time."""
+    return _roofline(ctx, "stencil", "stencil3d kernel")
+
+
 def spectral_roofline(ctx):
     """The coarse spectral solve's share of its roofline: the least time of
     the spectral applies the profiled solves needed over the spectral

@@ -10,7 +10,10 @@ what the window produced to the plain reference (``portbench.reference``).
   that ``generate_data_fem`` makes at set-up, reshuffled each epoch. The
   reference follows the first steps, run in set-up from the seed's
   weights, and takes up steps of the window drawn from the seed (one that
-  starts an epoch) from the program's state before each.
+  starts an epoch) from the program's state before each. Beside each
+  worst leaf's gap it reads the median leaf's (``<leaf gap>_median``), and
+  the checked steps' fh answers lane by lane (``fh_y_gap``); a cell's
+  limits say which of them it holds.
 - ``datagen``: repeated ``generate_data_fem`` calls; the reference redoes a
   sample of their chunks.
 """
@@ -26,13 +29,17 @@ import numpy as np
 import torch
 
 from ..count import work
-from ..reference import fem, vi
+from ..reference import fem, fem_box, vi
 from . import system
 from .trace import Profiled, span
 
 # leaves whose reference gradient is under this share of the median leaf's
 # move under Adam by round-off alone, and are left out of the change
 FLAT_LEAF = 1e-3
+# the plain reference of each problem (``system.problem_kind``)
+REFERENCES = {"cooks_membrane": fem, "beam_hex8": fem_box}
+# rows a block of the reference's redraw of a whole dataset
+REF_ROWS = 500
 
 
 def sub_seed(seed: int, k: int) -> int:
@@ -140,35 +147,60 @@ def _rel_gap(a, b) -> float:
     return float(np.max(np.abs(np.asarray(a) - np.asarray(b))) / np.max(np.abs(np.asarray(b))))
 
 
-def _leaf_gap(prog, ref, keep=None) -> float:
+def _leaf_gap(prog, ref, keep=None, reduce=np.max) -> float:
     """The worst leaf's gap of norms, | |p| - |r| |, over the larger of the
-    reference leaf's norm and the median reference leaf's."""
+    reference leaf's norm and the median reference leaf's (with ``reduce =
+    np.median`` the median leaf's)."""
     pn = np.array([float(torch.linalg.vector_norm(p.double())) for p in prog])
     rn = np.array([float(torch.linalg.vector_norm(r.double())) for r in ref])
     keep = np.ones(len(rn), bool) if keep is None else keep
     scale = np.maximum(rn, np.median(rn[keep]))
-    return float(np.max((np.abs(pn - rn) / scale)[keep]))
+    return float(reduce((np.abs(pn - rn) / scale)[keep]))
+
+
+class _FhTap:
+    """An fh that keeps the (thetas, y) of its calls while ``on``: the
+    answers of the checked steps, which ``fh_y_gap`` holds to the
+    reference."""
+
+    def __init__(self, fh):
+        self.fh, self.on, self.calls = fh, False, []
+
+    def __call__(self, thetas):
+        y, h = self.fh(thetas)
+        if self.on:
+            self.calls.append((thetas.detach(), y.detach()))
+        return y, h
 
 
 def _draw_dataset_inputs(state, n, ne, config):
     """The draws ``generate_data_fem`` makes from a generator in ``state``,
-    in its order: theta (n, 2), the y noise, the z noise, e (ne, 2)."""
+    in its order: theta (n, 2), the y noise (n, d_y), the z noise, e (ne,
+    2)."""
     g = torch.Generator()
     g.set_state(state)
     noise = config["noise"]
     theta = torch.randn((n, 2), generator=g, dtype=torch.float64)
-    err = math.sqrt(noise["sig_e"]) * torch.randn((n, 2), generator=g, dtype=torch.float64)
+    err = math.sqrt(noise["sig_e"]) * torch.randn((n, system.y_dim(config)), generator=g,
+                                                  dtype=torch.float64)
     eta = math.sqrt(noise["sig_eta"]) * torch.randn((n, 2), generator=g, dtype=torch.float64)
     e = torch.randn((ne, 2), generator=g, dtype=torch.float64)
     return theta, err, eta, e
 
 
 def _geometry(config, problem) -> work.TwoLevel:
-    nx, ny = config["mesh"]["nx"], config["mesh"]["ny"]
-    r = config["solver"]["coarse_ratio"]
-    cx, cy = nx // r, ny // r
-    return work.TwoLevel(ndof=2 * (nx + 1) * (ny + 1), nnz_parts=problem.nnz_parts,
-                         cells_c=(cy, cx), ratio=r, n_coarse=2 * (cx + 1) * (cy + 1) - 2 * (cy + 1))
+    """The two-level shapes of the configuration's grid: 2 dofs a node on
+    Cook's (ny, nx) cells, 3 on the box's (nz, ny, nx); the left (x = 0)
+    end clamped on both."""
+    m, r = config["mesh"], config["solver"]["coarse_ratio"]
+    box = system.problem_kind(config) == "beam_hex8"
+    cells = (m["nz"], m["ny"], m["nx"]) if box else (m["ny"], m["nx"])
+    dofs = len(cells)  # a dof a direction
+    coarse = [c // r + 1 for c in cells]
+    return work.TwoLevel(ndof=dofs * math.prod(c + 1 for c in cells),
+                         nnz_parts=problem.nnz_parts, cells_c=tuple(c // r for c in cells),
+                         ratio=r, n_coarse=dofs * (math.prod(coarse) - math.prod(coarse[:-1])),
+                         ndof_node=dofs)
 
 
 def _solve_works(config, problem, solves, adjoint: bool):
@@ -283,20 +315,23 @@ def train(cell, seed, seconds, trace, device, t_start, peaks=None, overrides=Non
     stage("runner")
     fh, solver = system.build_fh(cfg, device)
     recorder = system.SolveRecorder(solver)
-    trainer = system.build_trainer(cfg, tr, fh, device)
     dtype = system.DTYPES[net_cfg["dtype"]]
+    d_y = system.y_dim(cfg)
     stage("built")
 
     g_data = torch.Generator().manual_seed(sub_seed(seed, 1))
     data_state = g_data.get_state()
     ds = generate_data_fem(g_data, fh, n_sam=cfg["n_data"], ne_sam=tr["ne"], device=device,
-                           sig_e=noise["sig_e"], sig_eta=noise["sig_eta"],
+                           d_y=d_y, sig_e=noise["sig_e"], sig_eta=noise["sig_eta"],
                            chunk=tr["data_chunk"])
     y = torch.as_tensor(ds.y_data, dtype=dtype, device=device)
     e = torch.as_tensor(ds.e_data, dtype=dtype, device=device)
+    tap = _FhTap(fh)  # keeps the checked steps' answers
+    trainer = system.build_trainer(cfg, tr, tap, device,
+                                   (ds.y_mean, ds.y_std) if cfg.get("y_norm") else None)
     stage("dataset")
 
-    params0 = vi.glorot_params(torch.Generator().manual_seed(sub_seed(seed, 2)), 2,
+    params0 = vi.glorot_params(torch.Generator().manual_seed(sub_seed(seed, 2)), d_y,
                                net_cfg["hidden"], net_cfg["layers"], 2, dtype)
     net = trainer.new_theta_net(torch.Generator().manual_seed(0))
     with torch.no_grad():
@@ -313,6 +348,7 @@ def train(cell, seed, seconds, trace, device, t_start, peaks=None, overrides=Non
     # reference's to follow
     checked_rows, checked_losses = [], []
     beta1 = cfg["adam"]["betas"][0]
+    tap.on = True
     for k in range(tr["checked_steps"]):
         idx, _ = batches.next()
         checked_rows.append(idx.cpu())
@@ -339,6 +375,7 @@ def train(cell, seed, seconds, trace, device, t_start, peaks=None, overrides=Non
             with span(torch, "portbench.epoch_loss_read"):
                 float(losses[-1])  # the trainer reads the epoch's last loss
         before = _adam_state(net, opt) if w in picks else None
+        tap.on = before is not None
         with span(torch, "portbench.train_step"):
             losses.append(trainer.update_step1(net, opt, y[idx], e))
         if before is not None:
@@ -354,35 +391,54 @@ def train(cell, seed, seconds, trace, device, t_start, peaks=None, overrides=Non
     peak = _peak(device)
     nonfinite = int((~torch.isfinite(losses)).sum())
     rec_solves = recorder.counts()
-    del trainer, net, opt, fh, solver, recorder, y, e, ds, batches, step
+    answers = [(t.cpu(), a.cpu()) for t, a in tap.calls]
+    del trainer, net, opt, fh, solver, recorder, y, e, ds, batches, step, tap
     _free()
 
     t_check = time.perf_counter()
-    problem = fem.build_problem(cfg, device)
-    ref_solver = fem.Solver(problem, torch.float64)
+    ref = REFERENCES[system.problem_kind(cfg)]
+    problem = ref.build_problem(cfg, device)
+    ref_solver = ref.Solver(problem, torch.float64)
     theta, err, _, e_ref = _draw_dataset_inputs(data_state, cfg["n_data"], tr["ne"], cfg)
 
     def ref_y(idx):
-        f, _ = fem.observe(problem, ref_solver, theta[idx].to(device), with_h=False)
+        f, _ = ref.observe(problem, ref_solver, theta[idx].to(device), with_h=False)
         return f.detach() + err[idx].to(device)
 
     def moving(grads):
         gn = np.array([float(torch.linalg.vector_norm(g)) for g in grads])
         return gn >= FLAT_LEAF * np.median(gn)
 
-    ref_losses, ref_grads, ref_params = vi.follow_steps(
-        problem, ref_solver, params0, [ref_y(idx) for idx in checked_rows], e_ref, cfg)
+    y_norm = None
+    if cfg.get("y_norm"):
+        # the moments of the reference's own redraw of the whole dataset
+        y_all = torch.cat([ref_y(torch.arange(i, min(i + REF_ROWS, cfg["n_data"])))
+                           for i in range(0, cfg["n_data"], REF_ROWS)])
+        y_norm = (y_all.mean(0), y_all.std(0, correction=0))
+        del y_all
+
+    def follow(params, batches, state=None):
+        return vi.follow_steps(problem, ref_solver, params, batches, e_ref, cfg, state=state,
+                               observe=ref.observe, y_norm=y_norm)
+
+    def leaf_gaps(name, prog, ref_leaves, keep=None):
+        """The worst leaf's gap and the median leaf's (``<name>_median``)."""
+        return {name: _leaf_gap(prog, ref_leaves, keep),
+                name + "_median": _leaf_gap(prog, ref_leaves, keep, np.median)}
+
+    ref_losses, ref_grads, ref_params = follow(params0, [ref_y(idx) for idx in checked_rows])
     keep = moving(ref_grads)
     checks = {
         "loss_gap": max(abs(a - b) / abs(b) for a, b in zip(checked_losses, ref_losses)),
-        "grad_gap": _leaf_gap(first_grads, ref_grads),
-        "change_gap": _leaf_gap([a - b for a, b in zip(params_after, params0)],
-                                [a.cpu() - b for a, b in zip(ref_params, params0)], keep),
+        **leaf_gaps("grad_gap", first_grads, ref_grads),
+        **leaf_gaps("change_gap", [a - b for a, b in zip(params_after, params0)],
+                    [a.cpu() - b for a, b in zip(ref_params, params0)], keep),
     }
     # the window's steps, each from the program's state before it: its loss,
     # its gradient as Adam took it (from the first moment before and after)
     # and its change; a step the window did not reach reads nan
-    window = {"window_loss_gap": [], "window_grad_gap": [], "window_step_gap": []}
+    window = {k: [] for k in ("window_loss_gap", "window_grad_gap", "window_grad_gap_median",
+                              "window_step_gap", "window_step_gap_median")}
     left_out = int((~keep).sum())
     for w in picks:
         if w not in taken:
@@ -390,17 +446,26 @@ def train(cell, seed, seconds, trace, device, t_start, peaks=None, overrides=Non
                 v.append(float("nan"))
             continue
         idx, (p0, m0, v0, t0), (p1, m1, _, _) = taken[w]
-        (loss_r,), grads_r, p1_r = vi.follow_steps(problem, ref_solver, p0, [ref_y(idx)],
-                                                   e_ref, cfg, state=(m0, v0, t0))
+        (loss_r,), grads_r, p1_r = follow(p0, [ref_y(idx)], state=(m0, v0, t0))
         grads_p = [(a - beta1 * b) / (1 - beta1) for a, b in zip(m1, m0)]
         keep_w = moving(grads_r)
         left_out += int((~keep_w).sum())
-        window["window_loss_gap"].append(abs(float(losses[w]) - loss_r) / abs(loss_r))
-        window["window_grad_gap"].append(_leaf_gap(grads_p, [g.cpu() for g in grads_r]))
-        window["window_step_gap"].append(_leaf_gap(
-            [a - b for a, b in zip(p1, p0)], [a.cpu() - b for a, b in zip(p1_r, p0)], keep_w))
+        gaps = {"window_loss_gap": abs(float(losses[w]) - loss_r) / abs(loss_r),
+                **leaf_gaps("window_grad_gap", grads_p, [g.cpu() for g in grads_r]),
+                **leaf_gaps("window_step_gap", [a - b for a, b in zip(p1, p0)],
+                            [a.cpu() - b for a, b in zip(p1_r, p0)], keep_w)}
+        for k, v in gaps.items():
+            window[k].append(v)
     checks.update({k: max(v) if not any(map(math.isnan, v)) else float("nan")
                    for k, v in window.items()})
+    # the checked steps' answers of fh, lane by lane: the worst lane's
+    # largest gap over its largest displacement
+    gaps = []
+    with torch.no_grad():
+        for thetas, y_p in answers:
+            y_r = ref.observe(problem, ref_solver, thetas.to(device), with_h=False)[0].cpu()
+            gaps.append(float(((y_p - y_r).abs().amax(1) / y_r.abs().amax(1)).max()))
+    checks["fh_y_gap"] = max(gaps)
     e2e = {} if steps == 0 else {
         "train_steps_per_s": steps / marks[-1],
         "train_step_p90_ms": float(np.percentile(step_s, 90)) * 1e3}
@@ -430,12 +495,14 @@ def datagen(cell, seed, seconds, trace, device, t_start, peaks=None, overrides=N
     n, chunk, ne = tr["n_sam"], tr["chunk"], tr["ne"]
     stage("built")
 
+    d_y = system.y_dim(cfg)
+
     def call(gen):
-        return generate_data_fem(gen, fh, n_sam=n, ne_sam=ne, device=device,
+        return generate_data_fem(gen, fh, n_sam=n, ne_sam=ne, device=device, d_y=d_y,
                                  sig_e=noise["sig_e"], sig_eta=noise["sig_eta"], chunk=chunk)
 
     generate_data_fem(torch.Generator().manual_seed(sub_seed(seed, 9)), fh, n_sam=chunk,
-                      ne_sam=ne, device=device, sig_e=noise["sig_e"],
+                      ne_sam=ne, device=device, d_y=d_y, sig_e=noise["sig_e"],
                       sig_eta=noise["sig_eta"], chunk=chunk)
     _sync(device)
     setup_s = time.perf_counter() - t_start
@@ -461,8 +528,9 @@ def datagen(cell, seed, seconds, trace, device, t_start, peaks=None, overrides=N
     bad = int((~np.isfinite(ys).all(-1) | ~np.isfinite(zs).all(-1)).sum())
 
     t_check = time.perf_counter()
-    problem = fem.build_problem(cfg, device)
-    ref_solver = fem.Solver(problem, torch.float64)
+    ref = REFERENCES[system.problem_kind(cfg)]
+    problem = ref.build_problem(cfg, device)
+    ref_solver = ref.Solver(problem, torch.float64)
     rng = np.random.default_rng(sub_seed(seed, 4))
     n_chunks = -(-n // chunk)
     picks = rng.choice(len(calls) * n_chunks, size=min(tr["checked_chunks"],
@@ -473,7 +541,7 @@ def datagen(cell, seed, seconds, trace, device, t_start, peaks=None, overrides=N
         state, y_p, z_p = calls[k]
         theta, err, eta, _ = _draw_dataset_inputs(state, n, ne, cfg)
         rows = slice(j * chunk, min(n, (j + 1) * chunk))
-        y_r, hh = fem.observe(problem, ref_solver, theta[rows].to(device))
+        y_r, hh = ref.observe(problem, ref_solver, theta[rows].to(device))
         y_r, hh = y_r.cpu().numpy(), hh.cpu().numpy()
         f_p.append(y_p[rows] - err[rows].numpy())
         f_r.append(y_r)

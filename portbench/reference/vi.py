@@ -3,9 +3,10 @@ pair of MLPs, the ELBO loss with the FEM inside and Adam.
 
 q(theta | y) is N(mean(y), diag(exp(logvar(y)))), each head an MLP of
 ``layers`` hidden ReLU layers of width ``hidden`` and a linear output on
-the raw observation y. A batch of b observations and the fixed base draws
-e (ne, 2) give the b * ne posterior samples ``theta = e * exp(logvar / 2) +
-mean`` (observation-major); the loss is
+the raw observation y, or with ``y_norm = (mean, std)`` on (y - mean) /
+std (the likelihood keeps the raw y). A batch of b observations and the
+fixed base draws e (ne, 2) give the b * ne posterior samples ``theta = e *
+exp(logvar / 2) + mean`` (observation-major); the loss is
 
     term1 = -mean_b sum logvar / 2 - d/2 log(2 pi) - d/2
     term2 = -d_y/2 log(2 pi sig_e) + mean over pairs of -|y - f|^2 / (2 sig_e)
@@ -50,10 +51,11 @@ def mlp(params, x):
     return x
 
 
-def step1_loss(params, y, e, theta_to_f, sig_e, pairing):
+def step1_loss(params, y, e, theta_to_f, sig_e, pairing, y_norm=None):
     """The step-1 loss of a batch y (b, d_y) with base draws e (ne, d)."""
     half = len(params) // 2
-    mean, logvar = mlp(params[:half], y), mlp(params[half:], y)
+    x = y if y_norm is None else (y - y_norm[0]) / y_norm[1]
+    mean, logvar = mlp(params[:half], x), mlp(params[half:], x)
     d, d_y, ne = mean.shape[1], y.shape[1], e.shape[0]
     theta = (e[None] * torch.exp(0.5 * logvar)[:, None] + mean[:, None]).reshape(-1, d)
     f = theta_to_f(theta)
@@ -97,11 +99,13 @@ class Adam:
 
 
 def follow_steps(problem, solver, params0, batches, e, config, state=None,
-                 dtype=torch.float64):
+                 dtype=torch.float64, observe=fem.observe, y_norm=None):
     """The reference's own steps from ``params0`` and Adam's ``state``
-    (``(m, v, t)``; fresh if None) over ``batches`` (a list of y (b, d_y)):
-    (losses, the first step's gradients as Adam took them, by leaf, params
-    after the last step)."""
+    (``(m, v, t)``; fresh if None) over ``batches`` (a list of y (b, d_y)),
+    through the problem's ``observe`` (``fem``'s or ``fem_box``'s), the
+    nets' inputs standardised by ``y_norm`` where given: (losses, the first
+    step's gradients as Adam took them, by leaf, params after the last
+    step)."""
     adam_cfg = config["adam"]
     on = dict(dtype=dtype, device=problem.device)
     params = [p.to(**on) for p in params0]
@@ -110,13 +114,15 @@ def follow_steps(problem, solver, params0, batches, e, config, state=None,
     opt = Adam(params, adam_cfg["lr"], tuple(adam_cfg["betas"]), adam_cfg["eps"],
                adam_cfg["clip_grad_norm"], state)
     e = e.to(**on)
+    if y_norm is not None:
+        y_norm = tuple(t.to(**on) for t in y_norm)
     sig_e = config["noise"]["sig_e"]
     losses, first_grads = [], None
     for y in batches:
         leaves = [p.detach().requires_grad_(True) for p in params]
         loss = step1_loss(leaves, y.to(**on), e,
-                          lambda th: fem.observe(problem, solver, th, with_h=False)[0],
-                          sig_e, config["pairing"])
+                          lambda th: observe(problem, solver, th, with_h=False)[0],
+                          sig_e, config["pairing"], y_norm)
         grads = torch.autograd.grad(loss, leaves)
         losses.append(float(loss.detach()))
         params = [p.detach() for p in opt.step(leaves, grads)]

@@ -94,3 +94,134 @@ def test_full_size_step_bound_matches_the_kernel_table():
     assert abs(t * 1e3 - 0.0171) < 0.0005
     t = work.least_time_s([work.spectral(256, 1, 1680, 4, coords=True)], H100)
     assert abs(t * 1e3 - 0.0175) < 0.0005
+
+
+def _box_config(mesh):
+    import json
+    import os
+
+    from portbench.conftest import tiny_config
+    from portbench.harness import manifest
+
+    with open(os.path.join(manifest.BENCH_DIR, "configs", "box_32x8x8.json")) as f:
+        return tiny_config(json.load(f), mesh)
+
+
+def _exact_box_nonzeros(nx, ny, nz, lx, ly, lz):
+    """The nonzero coefficients of the assembled K_lam and K_mu of the
+    uniform hex8 box over all dofs, tallied in exact rationals: a hex8
+    entry is a product of 1-D integrals of the linear hats on [0, h] (mass
+    h/3, h/6; stiffness 1/h, -1/h; a derivative against a hat -1/2 or 1/2),
+    which the 2x2x2 Gauss rule integrates exactly, and K_lam[(a,i),(b,j)] =
+    int N_a,i N_b,j, K_mu[(a,i),(b,j)] = delta_ij grad N_a . grad N_b +
+    int N_a,j N_b,i."""
+    from collections import defaultdict
+    from fractions import Fraction as F
+
+    hs = [F(lx) / nx, F(ly) / ny, F(lz) / nz]
+    loc = [(0, 0, 0), (1, 0, 0), (1, 1, 0), (0, 1, 0), (0, 0, 1), (1, 0, 1), (1, 1, 1),
+           (0, 1, 1)]
+
+    def one_d(h, s, t, ds, dt):
+        if ds and dt:
+            return 1 / h if s == t else -1 / h
+        if ds or dt:
+            return F(1, 2) if (s if ds else t) == 1 else F(-1, 2)
+        return h / 3 if s == t else h / 6
+
+    def grad_grad(a, b, k, l):
+        out = F(1)
+        for ax in range(3):
+            out *= one_d(hs[ax], loc[a][ax], loc[b][ax], ax == k, ax == l)
+        return out
+
+    ke = {}
+    for a in range(8):
+        for b in range(8):
+            gg = {(k, l): grad_grad(a, b, k, l) for k in range(3) for l in range(3)}
+            lap = sum(gg[(k, k)] for k in range(3))
+            for i in range(3):
+                for j in range(3):
+                    ke[(a, i, b, j)] = (gg[(i, j)], (lap if i == j else 0) + gg[(j, i)])
+    K = [defaultdict(F), defaultdict(F)]
+
+    def node(i, j, k):
+        return (k * (ny + 1) + j) * (nx + 1) + i
+
+    for k in range(nz):
+        for j in range(ny):
+            for i in range(nx):
+                nodes = [node(i + p[0], j + p[1], k + p[2]) for p in loc]
+                for (a, di, b, dj), parts in ke.items():
+                    for p in range(2):
+                        K[p][(3 * nodes[a] + di, 3 * nodes[b] + dj)] += parts[p]
+    return tuple(sum(v != 0 for v in Kp.values()) for Kp in K)
+
+
+@pytest.mark.parametrize("mesh", [{"nx": 4, "ny": 2, "nz": 2}, {"nx": 6, "ny": 4, "nz": 2}],
+                         ids=["4x2x2", "6x4x2"])
+def test_box_nonzeros_are_an_exact_tally_and_the_ports(mesh):
+    """The box reference's nonzeros by part (its coefficients over 1e-12 of
+    the largest) are the exact tally's, and the 3-D stencil kernel's tables
+    hold as many over round-off."""
+    from vbicm_tpu_torch.config import SectionCard
+    from vbicm_tpu_torch.mesh import beam_hex8_mesh
+    from vbicm_tpu_torch.model import build_fem_model
+    from vbicm_tpu_torch.ops.stencil3d import build_stencil_tables_3d
+
+    from portbench.reference import fem_box
+
+    cfg = _box_config(mesh)
+    m = cfg["mesh"]
+    problem = fem_box.build_problem(cfg, "cpu")
+    assert problem.nnz_parts == _exact_box_nonzeros(m["nx"], m["ny"], m["nz"], m["lx"],
+                                                    m["ly"], m["lz"])
+    model = build_fem_model(beam_hex8_mesh(m["nx"], m["ny"], m["nz"], tip_force=(0, 0, -1)),
+                            SectionCard(stype=4), device="cpu", dense=False)
+    W = build_stencil_tables_3d(model, m["nx"], m["ny"], m["nz"])
+    held = tuple(int(np.count_nonzero(np.abs(Wp) > fem_box.ZERO_SHARE * np.abs(Wp).max()))
+                 for Wp in W)
+    assert problem.nnz_parts == held
+
+
+def test_3d_hat_transfer_by_hand():
+    from vbicm_tpu_torch.ops.multigrid import hat_matrix
+
+    # (nz_c, ny_c, nx_c) = (1, 1, 2) at ratio 2: fine 3 x 3 x 5, coarse 2 x 2 x 3
+    # nodes, 3 dofs; weights 4 (z), 4 (y), 7 (x), each the port's hat matrix's;
+    # cheapest order x, then y (or z), then the last:
+    # 7 * 3 * 3 + 4 * 3 * 3 + 4 * 2 * 3 = 123 multiply-adds a dof
+    assert [np.count_nonzero(hat_matrix(n * 2 + 1, n + 1, 2)) for n in (1, 1, 2)] == [4, 4, 7]
+    w = work.hat_transfer(2, 1, (1, 1, 2), 2, 8, ndof_node=3)
+    assert (w.nbytes, w.flops, w.unit) == ((2 * 3 * (45 + 12) + 15) * 8, 2 * 2 * 3 * 123,
+                                           "fp64_tc")
+
+
+def test_box_geometry_is_the_ports():
+    """The counted grid of the box at 32x8x8 and 6x4x2: fine dofs, coarse
+    cells and free coarse dofs (the spectral coarse solve's n) as the port's
+    models have them, and the nonzeros at 32x8x8."""
+    from vbicm_tpu_torch.config import SectionCard
+    from vbicm_tpu_torch.mesh import beam_hex8_mesh
+    from vbicm_tpu_torch.model import build_fem_model
+
+    from portbench.harness import runners
+    from portbench.reference import fem_box
+
+    for mesh in ({"nx": 32, "ny": 8, "nz": 8}, {"nx": 6, "ny": 4, "nz": 2}):
+        cfg = _box_config(mesh)
+        problem = fem_box.build_problem(cfg, "cpu")
+        g = runners._geometry(cfg, problem)
+        r = cfg["solver"]["coarse_ratio"]
+        cells = (mesh["nx"], mesh["ny"], mesh["nz"])
+        fine = build_fem_model(beam_hex8_mesh(*cells), SectionCard(stype=4), device="cpu",
+                               dense=False)
+        coarse = build_fem_model(beam_hex8_mesh(*(n // r for n in cells)),
+                                 SectionCard(stype=4), device="cpu", dense=False)
+        assert (g.ndof, g.n_coarse, g.ndof_node, g.ratio) == (fine.ndof, coarse.nfree, 3, r)
+        assert g.cells_c == tuple(n // r for n in cells[::-1])
+        assert g.nnz_parts == problem.nnz_parts
+    assert (g.ndof, g.n_coarse) == (315, 3 * 4 * 3 * 2 - 3 * 3 * 2)
+    cfg = _box_config({"nx": 32, "ny": 8, "nz": 8})
+    g = runners._geometry(cfg, fem_box.build_problem(cfg, "cpu"))
+    assert (g.ndof, g.n_coarse, g.cells_c, g.nnz) == (8019, 1200, (4, 4, 16), 727062)

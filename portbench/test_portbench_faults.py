@@ -10,10 +10,10 @@ import time
 import pytest
 
 from portbench import faults
-from portbench.conftest import TINY_SECONDS
+from portbench.conftest import tiny_seconds
 from portbench.harness import manifest, runners
 
-CELLS = ["cooks160x80.train", "cooks160x80.datagen"]
+CELLS = ["cooks160x80.train", "cooks160x80.datagen", "box32x8x8.train"]
 
 
 @pytest.mark.parametrize("cell, fault", [(c, f) for c in CELLS for f in (
@@ -23,7 +23,7 @@ def test_a_planted_fault_is_not_correct(tiny_bench, cell, fault):
     c = manifest.load_cell(cell, root=root, bench_dir=bench_dir)
     kind = c.traffic["kind"]
     with faults.plant(kind, fault):
-        rec = runners.RUNNERS[kind](c, 2**31 + 21, TINY_SECONDS[kind], False, "cpu",
+        rec = runners.RUNNERS[kind](c, 2**31 + 21, tiny_seconds(c), False, "cpu",
                                     time.perf_counter())
     correct, checks = runners.verdict(rec, c.limits)
     assert all(math.isfinite(v["value"]) for v in checks.values()), checks
@@ -40,7 +40,7 @@ def test_the_control_is_not_correct(tiny_bench, cell):
     with open(os.path.join(bench_dir, "workloads", cell + ".json")) as f:
         control = json.load(f)["control"]
     kind = c.traffic["kind"]
-    rec = runners.RUNNERS[kind](c, 2**31 + 77, TINY_SECONDS[kind], False, "cpu",
+    rec = runners.RUNNERS[kind](c, 2**31 + 77, tiny_seconds(c), False, "cpu",
                                 time.perf_counter(), overrides=control)
     correct, checks = runners.verdict(rec, c.limits)
     assert all(math.isfinite(v["value"]) for v in checks.values()), checks
@@ -65,7 +65,7 @@ def test_a_fault_only_in_the_window_is_not_correct(tiny_bench):
         return update
 
     with faults._patch(TwoStepTrainer, "update_step1", make):
-        rec = runners.train(c, 2**31 + 31, TINY_SECONDS["train"], False, "cpu",
+        rec = runners.train(c, 2**31 + 31, tiny_seconds(c), False, "cpu",
                             time.perf_counter())
     correct, checks = runners.verdict(rec, c.limits)
     assert all(math.isfinite(v["value"]) for v in checks.values()), checks

@@ -119,3 +119,24 @@ def test_a_reader_that_finds_nothing_leaves_its_metric_out(tiny_bench):
     ctx = runners.Context(trace=Trace([], [], 1.0), units=3, units_s=1.0, works=[],
                           peaks=None, cg_solves=[])
     assert manifest.read_metrics(cell, ctx, bench_dir=bench_dir) == {}
+
+
+def test_the_box_cell_reports_the_train_metrics_and_its_stencil():
+    c = manifest.load_cell("box32x8x8.train")
+    assert c.chips == 1 and c.config["solver"]["kind"] == "two_level_box3d"
+    assert {m["name"] for m in c.end_to_end} == {"train_steps_per_s", "train_step_p90_ms",
+                                                 "setup_s"}
+    assert {m["name"] for m in c.per_layer} == {
+        "launches_per_step.train", "cg_iters.train", "elementwise_ms.train", "cublas_ms.train",
+        "spectral_roofline.train", "stencil3d_roofline.train", "mfu.train",
+        "device_idle.train", "cg_lane_util.train"}
+    with open(os.path.join(manifest.BENCH_DIR, "workloads", "box32x8x8.train.json")) as f:
+        readings = json.load(f)
+    limits = readings["limits"]
+    # every number a train cell has, the worst leaf's kept unheld beside the
+    # median leaf's, and the fh's answers
+    cooks = manifest.load_cell("cooks160x80.train").limits
+    assert set(limits) == set(cooks) | {n + "_median" for n in cooks if n.endswith(
+        ("grad_gap", "change_gap", "step_gap"))} | {"fh_y_gap"}
+    assert all(limits[n] is None for n in limits if n + "_median" in limits)
+    assert readings["control"] == {"solver": {"refine_residual": "split_f32"}}

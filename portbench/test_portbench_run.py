@@ -9,7 +9,7 @@ import time
 
 import pytest
 
-from portbench.conftest import TINY_SECONDS
+from portbench.conftest import tiny_seconds
 from portbench.harness import manifest, runners
 
 RUN = os.path.join(manifest.BENCH_DIR, "run.py")
@@ -40,12 +40,13 @@ def test_only_the_benchmark_no_result(tmp_path):
     assert out.stdout.strip() == ""
 
 
-@pytest.mark.parametrize("cell", ["cooks160x80.train", "cooks160x80.datagen"])
+@pytest.mark.parametrize("cell", ["cooks160x80.train", "cooks160x80.datagen",
+                                  "box32x8x8.train"])
 def test_a_tiny_run_is_correct(tiny_bench, cell):
     root, bench_dir = tiny_bench
     c = manifest.load_cell(cell, root=root, bench_dir=bench_dir)
     kind = c.traffic["kind"]
-    rec = runners.RUNNERS[kind](c, 2**31 + 9, TINY_SECONDS[kind], False, "cpu",
+    rec = runners.RUNNERS[kind](c, 2**31 + 9, tiny_seconds(c), False, "cpu",
                                 time.perf_counter())
     correct, checks = runners.verdict(rec, c.limits)
     assert correct, checks

@@ -6,7 +6,7 @@ import time
 import numpy as np
 import pytest
 
-from portbench.conftest import TINY_SECONDS
+from portbench.conftest import tiny_seconds
 from portbench.harness import manifest, runners
 from portbench.harness.trace import Trace
 
@@ -36,12 +36,13 @@ def test_a_program_without_the_loops_arithmetic_reads_nothing(name, monkeypatch)
     assert manifest.metric_reader(name)(_ctx([[np.array([5, 13])]])) is None
 
 
-@pytest.mark.parametrize("cell", ["cooks160x80.train", "cooks160x80.datagen"])
+@pytest.mark.parametrize("cell", ["cooks160x80.train", "cooks160x80.datagen",
+                                  "box32x8x8.train"])
 def test_a_traced_tiny_run_reads_lane_use(tiny_bench, cell):
     root, bench_dir = tiny_bench
     c = manifest.load_cell(cell, root=root, bench_dir=bench_dir)
     kind = c.traffic["kind"]
-    rec = runners.RUNNERS[kind](c, 2**31 + 17, TINY_SECONDS[kind], True, "cpu",
+    rec = runners.RUNNERS[kind](c, 2**31 + 17, tiny_seconds(c), True, "cpu",
                                 time.perf_counter())
     got = manifest.read_metrics(c, rec.ctx, bench_dir=bench_dir)
     runs = [it for solve in rec.ctx.cg_solves for it in solve]
